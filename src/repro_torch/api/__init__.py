@@ -1,0 +1,59 @@
+"""repro_torch.api — the single dispatch point for the quantized GEMMs.
+
+  Backend          — protocol an execution engine implements (backend.py)
+  ExecutionPolicy  — frozen dataclass of tunables (policy.py)
+  register/use     — registry and scoped defaults:
+                         with repro_torch.api.use("cuda", policy=pol): ...
+  bitserial_mm, bitserial_mm_packed — the dispatch functions
+  repro_torch.api.nn — functional layers (qlinear, qgraph_conv)
+
+Every dispatch function takes optional ``backend=`` / ``policy=``, which
+beat the active context.
+"""
+from __future__ import annotations
+
+from repro_torch.api.backend import OPS, Backend, UnsupportedOpError
+from repro_torch.api.policy import DEFAULT_POLICY, ExecutionPolicy
+from repro_torch.api.registry import (DEFAULT_BACKEND, current, get_backend,
+                                      list_backends, register, resolve,
+                                      set_default, use)
+import repro_torch.api.backends  # noqa: F401  (registers torch_dot/popcount/cuda)
+
+__all__ = [
+    "Backend", "UnsupportedOpError", "OPS",
+    "ExecutionPolicy", "DEFAULT_POLICY", "DEFAULT_BACKEND",
+    "register", "get_backend", "list_backends", "use", "set_default",
+    "current", "resolve", "bitserial_mm", "bitserial_mm_packed",
+]
+
+
+def _jump_kw(be, tiles):
+    """Precomputed-tile pass-through, gated on the probed capability.
+
+    Backends without the matching capability never see the kwarg (jumping
+    and translation are optimizations — results are identical either
+    way). Compact tiles probe ``bitserial_jump``; the tagged sgt 4-tuple
+    probes ``bitserial_sgt``.
+    """
+    if tiles is None:
+        return {}
+    cap = ("bitserial_sgt" if len(tiles) == 4 and tiles[3] == "sgt"
+           else "bitserial_jump")
+    return {"tiles": tiles} if be.supports(cap) else {}
+
+
+def bitserial_mm(aq, bq, s: int, t: int, *, backend=None, policy=None,
+                 tiles=None):
+    """Exact int32 (M,K)@(K,N) over unpacked unsigned s-bit x t-bit operands."""
+    be, pol = resolve("bitserial_mm", backend=backend, policy=policy, s=s, t=t)
+    return be.bitserial_mm_vals(aq, bq, s, t, policy=pol,
+                                **_jump_kw(be, tiles))
+
+
+def bitserial_mm_packed(a_packed, b_packed, *, backend=None, policy=None,
+                        tiles=None):
+    """Exact int32 GEMM over packed (s,M,W) x (t,W,N) bit-plane operands."""
+    s, t = a_packed.shape[0], b_packed.shape[0]
+    be, pol = resolve("bitserial_mm", backend=backend, policy=policy, s=s, t=t)
+    return be.bitserial_mm(a_packed, b_packed, policy=pol,
+                           **_jump_kw(be, tiles))

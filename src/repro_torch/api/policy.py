@@ -1,0 +1,76 @@
+"""ExecutionPolicy: every tunable of quantized-GEMM execution in one object.
+
+The field set is the reference's (``repro.api.policy``):
+
+  block_m/block_n/block_w — tile shape: block_m rows of A, block_n output
+                            columns, block_w 32-bit words of K. The zero-
+                            tile artifacts are built on (block_m, block_w).
+  mode                    — 'vpu' (popcount on the CUDA cores) | 'mxu'
+                            (tensor cores: not built yet, the kernel engine
+                            raises NotImplementedError)
+  jump                    — zero-tile jumping (§4.3): none | mask | compact
+                            | sgt (single-word columns, kernels/sgt.py)
+  reuse                   — §4.4 tile reuse: the s*t plane loop inside one
+                            kernel (False needs the 1-bit bgemm kernel,
+                            not yet ported)
+  fused_requantize        — the §4.5 fused epilogue (not yet ported)
+  interpret               — kept for parity with the reference. The port
+                            has no interpret mode: a CPU tensor takes a
+                            kernel's plain version, a CUDA tensor the kernel.
+
+The checks follow the port's kernel: one CUDA thread per output element
+of a (block_m, block_n) tile, so the tile holds whole warps and at most
+1024 threads, and its shared-memory staging of 8-bit operands fits a block.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.kernels.bitserial import MAX_BITS, MAX_THREADS
+
+__all__ = ["ExecutionPolicy", "DEFAULT_POLICY", "JUMP_MODES", "COMPUTE_MODES"]
+
+JUMP_MODES = ("none", "mask", "compact", "sgt")
+COMPUTE_MODES = ("vpu", "mxu")
+_MAX_SMEM_BYTES = 232_448  # shared memory one block may use on Hopper
+
+
+@dataclasses.dataclass(frozen=True)
+class ExecutionPolicy:
+    block_m: int = 8
+    block_n: int = 32
+    block_w: int = 4
+    mode: str = "vpu"
+    jump: str = "none"
+    reuse: bool = True
+    fused_requantize: bool = False
+    interpret: bool | None = None
+
+    def __post_init__(self):
+        if self.jump not in JUMP_MODES:
+            raise ValueError(f"jump must be one of {JUMP_MODES}, got {self.jump!r}")
+        if self.mode not in COMPUTE_MODES:
+            raise ValueError(f"mode must be one of {COMPUTE_MODES}, got {self.mode!r}")
+        for f in ("block_m", "block_n", "block_w"):
+            v = getattr(self, f)
+            if not isinstance(v, int) or v <= 0:
+                raise ValueError(f"{f} must be a positive int, got {v!r}")
+        threads = self.block_m * self.block_n
+        if threads % 32 or threads > MAX_THREADS:
+            raise ValueError(
+                f"block_m * block_n must be a multiple of 32 (whole warps) "
+                f"and at most {MAX_THREADS} (one thread per output), got "
+                f"{self.block_m} * {self.block_n} = {threads}")
+        smem = 4 * MAX_BITS * self.block_w * (self.block_m + self.block_n)
+        if smem > _MAX_SMEM_BYTES:
+            raise ValueError(
+                f"a ({self.block_m}, {self.block_n}, {self.block_w}) tile "
+                f"stages {smem} bytes of 8-bit operands, more than the "
+                f"{_MAX_SMEM_BYTES} a block may use")
+
+    def replace(self, **kw) -> "ExecutionPolicy":
+        """Functional update (alias for dataclasses.replace)."""
+        return dataclasses.replace(self, **kw)
+
+
+DEFAULT_POLICY = ExecutionPolicy()

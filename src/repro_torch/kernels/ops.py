@@ -1,0 +1,119 @@
+"""Public wrappers around the kernels: policy resolution, padding, the jump
+artifacts of the ``tiles=`` contract, and cropping.
+
+Tunables come from an ``api.ExecutionPolicy`` (``policy=``); explicit
+keyword overrides (``block_m=``, ``jump=``, ...) win over the policy,
+which wins over DEFAULT_POLICY, as in the reference's
+``repro.kernels.ops``. The device of the operands decides what runs:
+a CUDA tensor launches the kernel, a CPU tensor takes its plain version.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.api.policy import DEFAULT_POLICY, ExecutionPolicy
+from repro_torch.core import bitops, zerotile
+from repro_torch.kernels import bitserial as _bitserial
+from repro_torch.kernels import sgt as _sgt
+
+__all__ = ["bitserial_gemm"]
+
+
+def _resolve(policy: ExecutionPolicy | None, **overrides):
+    """Merge explicit kwargs over the policy over DEFAULT_POLICY."""
+    pol = policy if policy is not None else DEFAULT_POLICY
+    return {k: (v if v is not None else getattr(pol, k))
+            for k, v in overrides.items()}
+
+
+def _unpack_tiles(tiles):
+    """tiles=(idx, counts, s_max[, kind]) -> (idx, counts, host int, kind).
+
+    ``kind`` tags the remap: ``"compact"`` (the default, block_w-word
+    k-tile ids from ``zerotile.compact_artifacts``) or ``"sgt"``
+    (single-word column ids from ``sgt.sgt_artifacts``). ``s_max`` sizes
+    the kernel's K loop, so it must be a host int.
+    """
+    if tiles is None:
+        return None, None, 0, "compact"
+    if len(tiles) == 4:
+        idx, cnt, s_max, kind = tiles
+    else:
+        (idx, cnt, s_max), kind = tiles, "compact"
+    if kind not in ("compact", "sgt"):
+        raise ValueError(
+            f"tiles kind must be 'compact' or 'sgt', got {kind!r}")
+    if not isinstance(s_max, int):
+        raise TypeError(
+            f"tiles s_max must be a host int (it sizes the kernel's K loop), "
+            f"got {type(s_max).__name__}")
+    return idx, cnt, s_max, kind
+
+
+def _jump_artifacts(a, tiles_idx, tiles_cnt, occupancy, jump, block_m,
+                    block_w, s_max, tiles_kind):
+    """Resolve (occupancy, compact, sgt) for a padded (s, M, W) operand.
+
+    Precedence: tiles > occupancy > recompute from ``jump``. The in-call
+    recompute keeps the full K bound as the step count, so it needs no
+    read back to the host.
+    """
+    if tiles_idx is not None:
+        if tiles_kind == "sgt":
+            return None, None, (tiles_idx, tiles_cnt, s_max)
+        return None, (tiles_idx, tiles_cnt, s_max), None
+    if jump == "sgt":
+        # a tile-granularity occupancy map cannot seed the word remap
+        wocc = _sgt.word_occupancy(a, block_m)
+        idx, cnt = zerotile.compact_tiles(wocc)
+        return None, None, (idx, cnt, wocc.shape[1])
+    if jump == "compact":
+        occ = (occupancy if occupancy is not None
+               else zerotile.tile_occupancy_planes(a, block_m, block_w))
+        idx, cnt = zerotile.compact_tiles(occ)
+        return None, (idx, cnt, occ.shape[1]), None
+    if occupancy is not None:
+        return occupancy, None, None
+    if jump == "mask":
+        return zerotile.tile_occupancy_planes(a, block_m, block_w), None, None
+    return None, None, None
+
+
+def bitserial_gemm(
+    a_packed: torch.Tensor,
+    b_packed: torch.Tensor,
+    *,
+    policy: ExecutionPolicy | None = None,
+    block_m: int | None = None,
+    block_n: int | None = None,
+    block_w: int | None = None,
+    mode: str | None = None,
+    jump: str | None = None,             # none | mask | compact | sgt
+    tiles: tuple | None = None,          # precomputed (idx, counts, s_max[, kind])
+    occupancy: torch.Tensor | None = None,  # precomputed (MT, KT) mask
+) -> torch.Tensor:
+    """(s,M,W) x (t,W,N) -> int32 (M,N): exact any-bitwidth GEMM with
+    zero-tile jumping.
+
+    ``tiles``/``occupancy`` are precomputed artifacts on A's padded
+    (block_m, block_w) grid; they win over ``jump``, which recomputes them
+    per call. M and W are zero-padded to the grid; N is not (the kernel
+    masks the ragged edge).
+    """
+    kw = _resolve(policy, block_m=block_m, block_n=block_n, block_w=block_w,
+                  mode=mode, jump=jump)
+    if kw["mode"] != "vpu":
+        raise NotImplementedError(
+            f"mode={kw['mode']!r}: the tensor-core bit-serial kernel is not "
+            "built yet; use mode='vpu'")
+    t_idx, t_cnt, s_max, kind = _unpack_tiles(tiles)
+    _, m, _ = a_packed.shape
+    bm, bw = kw["block_m"], kw["block_w"]
+    a = bitops.pad_to(bitops.pad_to(a_packed, 1, bm), 2, bw).contiguous()
+    b = bitops.pad_to(b_packed, 1, bw).contiguous()
+    occ, compact, sgt = _jump_artifacts(a, t_idx, t_cnt, occupancy,
+                                        kw["jump"], bm, bw, s_max, kind)
+    out = _bitserial.bitserial_gemm(a, b, block_m=bm, block_n=kw["block_n"],
+                                    block_w=bw, occupancy=occ,
+                                    compact=compact, sgt=sgt)
+    return out[:m]
