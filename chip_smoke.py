@@ -7,23 +7,39 @@ Phases run in order; any failure raises and the script exits non-zero
 without printing a result:
 
   1. device and build — the card's name and power limit (nvidia-smi), and
-     the bit-serial kernel built from src/repro_torch/csrc with nvcc.
-  2. kernel against plain — the kernel and its plain PyTorch version on
-     the same CUDA tensors, in the dense, mask, compact and sgt schedules,
-     at ragged shapes and at the main path's own shapes; the int32 results
-     must be equal (torch.equal), and equal to the exact product.
+     every kernel of src/repro_torch/csrc built into one library with nvcc.
+  2. kernels against plain — each kernel and its plain PyTorch version on
+     the same CUDA tensors; every result must be equal (torch.equal):
+     bitserial_gemm (also equal to the exact product), bitserial_fused
+     (out_bits 8/4/2, ReLU on and off) and bgemm, in the dense, mask,
+     compact and sgt schedules at ragged shapes, at the paths' own shapes
+     and with an all-zero A; bitpack at nbits 1/2/5/8, K not a multiple of
+     32 and M not a multiple of block_m.
   3. main path — ogbn-arxiv at full scale, partitioned into 1500 parts
      (Cluster-GCN's setting), batches of 20 parts; the first 8 batches
      are served through forward_qgtc for qgtc-gcn and qgtc-gin at 8, 4
      and 2 bits, with no jumping, compact tiles and sgt tiles. The kernel
      engine's logits must equal the plain engine's bit for bit, and the
-     kernel must launch 6 times per GCN forward and 9 per GIN forward.
-  4. timing, fig7-style — per batch, CUDA events, median over repeats:
-     fp32_dense, fp32_csr, qgtc at 8/4/2 bits; the kernel alone at the
-     adjacency GEMM's shape beside its plain version, its bound, and one
-     float32 torch.matmul on the unpacked values (exact: every sum stays
-     below 2**24) as the library yardstick, which the port never calls.
-  5. profile — one qgtc forward per model under torch.profiler: host wall
+     kernel must launch 6 times per GCN forward and 9 per GIN forward, and
+     no other kernel at all.
+  4. tensor API — the §5 BitTensor path at full width on batch 0 (2304
+     nodes, 128 features) at the qgtc-gcn widths 128->16->16->40, at 8/4/2
+     bits: to_bit equal to api.bitpack word for word; the chain bitmm2bit
+     -> bitmm2bit -> bitmm2int with fused_requantize off and on, equal on
+     the cuda and popcount engines; the adjacency product under reuse=True
+     and reuse=False, equal, with 1 bitserial_gemm launch against s*t
+     bgemm launches; one case against the port on the CPU. Every kernel's
+     launch count must be what the phase expects.
+  5. timing, fig7-style — per batch, CUDA events, median over repeats:
+     fp32_dense, fp32_csr, qgtc at 8/4/2 bits; each kernel alone at its
+     path shape (a CUDA graph of 50 calls) beside its plain version, its
+     bound, and one PyTorch call of the same function where there is one
+     (a float32 torch.matmul on the unpacked values, exact: every sum stays
+     below 2**24), as the library yardstick, which the port never calls.
+  6. fig9a — the adjacency product with tile reuse (one bitserial_gemm)
+     and without (one bgemm per plane pair), CUDA events, at 2/4/8 bits,
+     for batch 0's adjacency and for the paper's all-ones A of its size.
+  7. profile — one qgtc forward per model under torch.profiler: host wall
      time, device time of its kernels, and the device's idle share.
 
 The line before the last lists each kernel as JSON; the last line is
@@ -45,10 +61,25 @@ DEVICE = "cuda"
 BITS = (8, 4, 2)
 ST_PAIRS = ((1, 1), (1, 8), (2, 4), (3, 5), (8, 8))
 RAGGED = ((37, 333, 5), (61, 1000, 70))
+FUSED_EPILOGUES = ((8, True), (8, False), (4, True), (4, False), (2, True),
+                   (2, False))
+PACK_BITS = (1, 2, 5, 8)
+PACK_SHAPES = ((37, 333), (129, 33), (61, 1000), (2304, 128))
+SCHEDULES = ("dense", "mask", "compact", "sgt")
 # H100 SXM published peaks: HBM bytes/s, and the 32-bit rate outside the
-# tensor cores, which is where the kernel's AND and popcount run.
+# tensor cores, which is where the kernels' AND, popcount and float
+# epilogue run.
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
+KERNEL_SOURCES = {
+    "bitserial_gemm": ("src/repro_torch/csrc/bitserial.cu",
+                       "src/repro/kernels/bitserial.py:245"),
+    "bitserial_fused": ("src/repro_torch/csrc/bitserial.cu",
+                        "src/repro/kernels/bitserial.py:273"),
+    "bgemm": ("src/repro_torch/csrc/bgemm.cu", "src/repro/kernels/bgemm.py:112"),
+    "bitpack": ("src/repro_torch/csrc/bitpack.cu",
+                "src/repro/kernels/bitpack.py:43"),
+}
 
 
 def emit(**kw):
@@ -103,83 +134,203 @@ def graph_ms(torch, fn, *, reps=50, repeats=5) -> float:
     return statistics.median(times)
 
 
-def bound(a_packed, t, n) -> tuple[float, str]:
+def roofline(nbytes, ops) -> tuple[float, str]:
+    """Least time (ms) to move ``nbytes`` and do ``ops``, and which bounds."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def bound(a_packed, t, n, *, fused=False) -> tuple[float, str]:
     """Least time (ms) for the bit-serial GEMM on these inputs, and what
     bounds it.
 
     Bytes: every input word read once, every output written once. Operations:
     one AND and one popcount per non-zero word of A, per plane of B, per
     output column; a zero word adds nothing, whatever the schedule, so the
-    work this data needs counts only the non-zero ones."""
+    work this data needs counts only the non-zero ones. The fused epilogue
+    adds alpha and beta (4 bytes a row and a column) and six operations per
+    output (convert, multiply, add, max, floor, clip)."""
     s, m, w = a_packed.shape
     nonzero_words = int((a_packed != 0).sum())
     nbytes = 4 * (s * m * w + t * w * n + m * n)
     ops = 2 * t * n * nonzero_words
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    if fused:
+        nbytes, ops = nbytes + 4 * (m + n), ops + 6 * m * n
+    return roofline(nbytes, ops)
+
+
+def _operand(torch, gen, m, k, bits, pattern):
+    a = torch.randint(0, 1 << bits, (m, k), generator=gen, dtype=torch.int32)
+    if pattern == "zero":
+        a.zero_()
+    elif pattern == "block_diag":
+        out = torch.zeros_like(a)
+        sm, sk = max(m // 4, 1), max(k // 4, 1)
+        for i in range(4):
+            out[i * sm:(i + 1) * sm, i * sk:(i + 1) * sk] = \
+                a[i * sm:(i + 1) * sm, i * sk:(i + 1) * sk]
+        a = out
+    return a
+
+
+def _schedules(ap, a_pad, pol):
+    """The four schedules as (wrapper kwargs, plain-version kwargs) for a
+    packed (s, M, W) operand and its padded copy."""
+    from repro_torch.core import zerotile
+    from repro_torch.kernels import sgt
+
+    occ = zerotile.tile_occupancy_planes(a_pad, pol.block_m, pol.block_w)
+    ctiles = zerotile.compact_artifacts(ap, pol.block_m, pol.block_w)
+    stiles = sgt.sgt_artifacts(ap, pol.block_m)
+    return {
+        "dense": ({}, {}),
+        "mask": ({"occupancy": occ}, {"occupancy": occ}),
+        "compact": ({"tiles": ctiles}, {"compact": ctiles[:3]}),
+        "sgt": ({"tiles": stiles}, {"sgt": stiles[:3]}),
+    }
+
+
+def _max_err(torch, got, plain, what):
+    torch.cuda.synchronize()
+    if not torch.equal(got, plain):
+        raise AssertionError(f"kernel != plain: {what}")
+    return (got.long() - plain.long()).abs().max().item() if got.numel() else 0
 
 
 def phase_kernel_vs_plain(torch, card):
     from repro_torch.api import DEFAULT_POLICY as pol
-    from repro_torch.core import bitops, zerotile
-    from repro_torch.kernels import bitserial, ops, sgt
+    from repro_torch.core import bitops
+    from repro_torch.kernels import bitserial, ops
 
     gen = torch.Generator().manual_seed(1)
-
-    def operand(m, k, bits, pattern):
-        a = torch.randint(0, 1 << bits, (m, k), generator=gen, dtype=torch.int32)
-        if pattern == "zero":
-            a.zero_()
-        elif pattern == "block_diag":
-            out = torch.zeros_like(a)
-            sm, sk = max(m // 4, 1), max(k // 4, 1)
-            for i in range(4):
-                out[i * sm:(i + 1) * sm, i * sk:(i + 1) * sk] = \
-                    a[i * sm:(i + 1) * sm, i * sk:(i + 1) * sk]
-            a = out
-        return a
-
     cases = [(shape, st) for shape in RAGGED for st in ST_PAIRS]
     cases += [((2048, 2048, 16), (1, 8)), ((2048, 128, 64), (8, 8))]
     max_err, n_checks = 0, 0
     for (m, k, n), (s, t) in cases:
         for pattern in ("random", "zero", "block_diag"):
-            a = operand(m, k, s, pattern)
+            a = _operand(torch, gen, m, k, s, pattern)
             b = torch.randint(0, 1 << t, (k, n), generator=gen, dtype=torch.int32)
             exact = (a.double() @ b.double()).to(torch.int32).to(DEVICE)
             ap, bp = bitops.pack_a(a, s).to(DEVICE), bitops.pack_b(b, t).to(DEVICE)
             a_pad = bitops.pad_to(bitops.pad_to(ap, 1, pol.block_m), 2, pol.block_w)
             b_pad = bitops.pad_to(bp, 1, pol.block_w)
-            occ = zerotile.tile_occupancy_planes(a_pad, pol.block_m, pol.block_w)
-            ctiles = zerotile.compact_artifacts(ap, pol.block_m, pol.block_w)
-            stiles = sgt.sgt_artifacts(ap, pol.block_m)
-            schedules = {
-                "dense": ({}, {}),
-                "mask": ({"occupancy": occ}, {"occupancy": occ}),
-                "compact": ({"tiles": ctiles},
-                            {"compact": (ctiles[0], ctiles[1], ctiles[2])}),
-                "sgt": ({"tiles": stiles},
-                        {"sgt": (stiles[0], stiles[1], stiles[2])}),
-            }
-            for name, (wrap_kw, plain_kw) in schedules.items():
+            for name, (wrap_kw, plain_kw) in _schedules(ap, a_pad, pol).items():
                 got = ops.bitserial_gemm(ap, bp, **wrap_kw)
                 plain = bitserial.bitserial_gemm_plain(
                     a_pad, b_pad, block_m=pol.block_m, block_w=pol.block_w,
                     **plain_kw)[:m]
-                torch.cuda.synchronize()
-                if not (torch.equal(got, plain) and torch.equal(got, exact)):
-                    raise AssertionError(
-                        f"kernel != plain at {(m, k, n)} s={s} t={t} "
-                        f"{pattern} {name}")
-                err = (got.long() - plain.long()).abs().max().item()
+                what = f"bitserial_gemm {(m, k, n)} s={s} t={t} {pattern} {name}"
+                err = _max_err(torch, got, plain, what)
+                if not torch.equal(got, exact):
+                    raise AssertionError(f"kernel != exact product: {what}")
                 max_err, n_checks = max(max_err, err), n_checks + 1
     emit(phase="kernel_vs_plain", kernel="bitserial_gemm", checks=n_checks,
-         schedules=["dense", "mask", "compact", "sgt"],
+         schedules=list(SCHEDULES),
          st_pairs=[list(p) for p in ST_PAIRS], ragged=[list(r) for r in RAGGED],
          path_shapes=[[2048, 2048, 16, 1, 8], [2048, 128, 64, 8, 8]],
          patterns=["random", "zero", "block_diag"], equal=True,
          max_abs_err=max_err, card=card)
     return max_err
+
+
+def phase_new_kernels_vs_plain(torch, card):
+    """bitserial_fused, bgemm and bitpack against their plain versions on
+    the same CUDA tensors. Returns {kernel: max_abs_err}."""
+    from repro_torch.api import DEFAULT_POLICY as pol
+    from repro_torch.core import bitops
+    from repro_torch.kernels import bgemm, bitpack, bitserial, ops
+
+    gen = torch.Generator().manual_seed(4)
+    errs = {"bitserial_fused": 0, "bgemm": 0, "bitpack": 0}
+    checks = dict.fromkeys(errs, 0)
+
+    # fused: the ragged shapes and plane pairs of the bit-serial check, and
+    # the Tensor API's two bitmm2bit shapes (2304 x 128 @ 128 x 16 and
+    # 2304 x 16 @ 16 x 16)
+    cases = [(shape, st) for shape in RAGGED for st in ST_PAIRS]
+    cases += [((2304, 128, 16), (8, 8)), ((2304, 16, 16), (4, 4))]
+    for (m, k, n), (s, t) in cases:
+        for pattern in ("random", "zero", "block_diag"):
+            a = _operand(torch, gen, m, k, s, pattern)
+            b = torch.randint(0, 1 << t, (k, n), generator=gen, dtype=torch.int32)
+            top = max(int((a.double() @ b.double()).max()), 1)
+            ap, bp = bitops.pack_a(a, s).to(DEVICE), bitops.pack_b(b, t).to(DEVICE)
+            a_pad = bitops.pad_to(bitops.pad_to(ap, 1, pol.block_m), 2, pol.block_w)
+            b_pad = bitops.pad_to(bp, 1, pol.block_w)
+            schedules = _schedules(ap, a_pad, pol)
+            for out_bits, relu in FUSED_EPILOGUES:
+                # spread the outputs over every level, clipped at both ends
+                alpha = (torch.rand((m, 1), generator=gen) * 1.5
+                         * (1 << out_bits) / top).to(DEVICE)
+                beta = ((torch.rand((1, n), generator=gen) - 0.5)
+                        * (1 << out_bits)).to(DEVICE)
+                al = bitops.pad_to(alpha, 0, pol.block_m)
+                for name, (wrap_kw, plain_kw) in schedules.items():
+                    got = ops.bitserial_fused(ap, bp, alpha, beta,
+                                              out_bits=out_bits, relu=relu,
+                                              **wrap_kw)
+                    plain = bitserial.bitserial_fused_plain(
+                        a_pad, b_pad, al, beta, out_bits=out_bits, relu=relu,
+                        block_m=pol.block_m, block_w=pol.block_w,
+                        **plain_kw)[:m]
+                    err = _max_err(torch, got, plain,
+                                   f"bitserial_fused {(m, k, n)} s={s} t={t} "
+                                   f"{pattern} {name} out_bits={out_bits} relu={relu}")
+                    errs["bitserial_fused"] = max(errs["bitserial_fused"], err)
+                    checks["bitserial_fused"] += 1
+    emit(phase="kernel_vs_plain", kernel="bitserial_fused",
+         checks=checks["bitserial_fused"], schedules=list(SCHEDULES),
+         epilogues=[list(e) for e in FUSED_EPILOGUES],
+         shapes=[[*shape, *st] for shape, st in cases],
+         patterns=["random", "zero", "block_diag"], equal=True,
+         max_abs_err=errs["bitserial_fused"], card=card)
+
+    # bgemm: the ragged shapes, the adjacency shape of the main path and the
+    # fig9a shape (2304 x 2304 adjacency x 128 features)
+    shapes = list(RAGGED) + [(2048, 2048, 16), (2304, 2304, 128)]
+    for m, k, n in shapes:
+        for pattern in ("random", "zero", "block_diag"):
+            a = _operand(torch, gen, m, k, 1, pattern)
+            b = torch.randint(0, 2, (k, n), generator=gen, dtype=torch.int32)
+            exact = (a.double() @ b.double()).to(torch.int32).to(DEVICE)
+            ap, bp = bitops.pack_a(a, 1).to(DEVICE), bitops.pack_b(b, 1).to(DEVICE)
+            a_pad = bitops.pad_to(bitops.pad_to(ap, 1, pol.block_m), 2, pol.block_w)
+            b_pad = bitops.pad_to(bp, 1, pol.block_w)
+            for name, (wrap_kw, plain_kw) in _schedules(ap, a_pad, pol).items():
+                got = ops.bgemm(ap[0], bp[0], **wrap_kw)
+                plain = bgemm.bgemm_plain(a_pad[0], b_pad[0], block_m=pol.block_m,
+                                          block_w=pol.block_w, **plain_kw)[:m]
+                what = f"bgemm {(m, k, n)} {pattern} {name}"
+                err = _max_err(torch, got, plain, what)
+                if not torch.equal(got, exact):
+                    raise AssertionError(f"kernel != exact product: {what}")
+                errs["bgemm"] = max(errs["bgemm"], err)
+                checks["bgemm"] += 1
+    emit(phase="kernel_vs_plain", kernel="bgemm", checks=checks["bgemm"],
+         schedules=list(SCHEDULES), shapes=[list(x) for x in shapes],
+         patterns=["random", "zero", "block_diag"], equal=True,
+         max_abs_err=errs["bgemm"], card=card)
+
+    # bitpack: K not a multiple of 32, M not a multiple of block_m, and the
+    # Tensor API's feature matrix; values beyond both clip ends
+    for m, k in PACK_SHAPES:
+        x = (torch.randn((m, k), generator=gen) * 2).to(DEVICE)
+        for nbits in PACK_BITS:
+            scale = torch.tensor(4.0 / (1 << nbits), device=DEVICE)
+            zero = torch.tensor(-2.0, device=DEVICE)
+            got = ops.bitpack(x, scale, zero, nbits=nbits)
+            plain = bitpack.bitpack_plain(x, scale, zero, nbits=nbits,
+                                          words=got.shape[2])
+            what = f"bitpack {(m, k)} nbits={nbits}"
+            err = _max_err(torch, got, plain, what)
+            if bool(got[:, :, -(-k // 32):].any()):
+                raise AssertionError(f"padding words not zero: {what}")
+            errs["bitpack"] = max(errs["bitpack"], err)
+            checks["bitpack"] += 1
+    emit(phase="kernel_vs_plain", kernel="bitpack", checks=checks["bitpack"],
+         nbits=list(PACK_BITS), shapes=[list(x) for x in PACK_SHAPES],
+         equal=True, max_abs_err=errs["bitpack"], card=card)
+    return errs
 
 
 def phase_main_path(torch, card):
@@ -264,6 +415,10 @@ def phase_main_path(torch, card):
     if launches == 0 or launches != expected:
         raise AssertionError(f"kernel launches on the main path: {launches}, "
                              f"expected {expected}")
+    # forward_qgtc runs the bit-serial GEMM alone, as the reference does
+    others = {k: v for k, v in bitserial.LAUNCHES.items() if k != "bitserial_gemm"}
+    if any(others.values()):
+        raise AssertionError(f"the main path launched other kernels: {others}")
     emit(phase="launches", kernel="bitserial_gemm", launches=launches,
          forwards=len(dbs) * len(BITS) * 3 * len(models))
 
@@ -296,9 +451,108 @@ def phase_main_path(torch, card):
     return models, dbs, tiles, launches
 
 
+def _chain(bt, api, x, ws, qps, bits, *, backend, fused):
+    """The Tensor API's three layers: bitmm2bit -> bitmm2bit -> bitmm2int."""
+    pol = api.ExecutionPolicy(fused_requantize=fused)
+    for w, qp in zip(ws[:-1], qps):
+        x = bt.bitmm2bit(x, w, bits, qp, backend=backend, policy=pol)
+    return bt.bitmm2int(x, ws[-1], backend=backend, policy=pol)
+
+
+def phase_tensor_api(torch, card, models, dbs):
+    """The §5 BitTensor path at full width on batch 0, at the qgtc-gcn
+    widths. Returns the launches of every kernel in the phase."""
+    from repro_torch import api
+    from repro_torch.core import bittensor as bt
+    from repro_torch.kernels import bitserial
+
+    db = dbs[0]
+    _, params, _ = models["qgtc-gcn"]
+    weights = [params[f"layer{l}"]["w"] for l in range(3)]
+    x, adj = db["x"], db["adj"]
+    ta = bt.to_bit(adj, 1, pack_axis=1)
+    expected = dict.fromkeys(bitserial.LAUNCHES, 0)
+    first = None  # (operands, fused logits on the card) at BITS[0]
+    bitserial.reset_launches()
+    for bits in BITS:
+        tx = bt.to_bit(x, bits, pack_axis=1)
+        packed = api.bitpack(x, tx.qp.scale, tx.qp.zero, nbits=bits)
+        expected["bitpack"] += 1
+        if not torch.equal(packed, tx.data):
+            raise AssertionError(f"{bits}b: to_bit != api.bitpack")
+        tws = [bt.to_bit(w, bits, pack_axis=0) for w in weights]
+        # output quantization parameters from one calibrated (unfused) pass,
+        # so that the fused epilogue has a scalar out_qp to fold in
+        h, qps = tx, []
+        for tw in tws[:-1]:
+            h = bt.bitmm2bit(h, tw, bits, backend="popcount")
+            qps.append(h.qp)
+        chains = {}
+        for fused in (False, True):
+            got = _chain(bt, api, tx, tws, qps, bits, backend="cuda", fused=fused)
+            want = _chain(bt, api, tx, tws, qps, bits, backend="popcount",
+                          fused=fused)
+            if fused:
+                expected["bitserial_fused"] += 2
+                expected["bitserial_gemm"] += 1
+            else:
+                expected["bitserial_gemm"] += 3
+            if got.shape != (x.shape[0], weights[-1].shape[1]) or \
+                    not torch.equal(got, want):
+                raise AssertionError(f"{bits}b fused={fused}: cuda engine != "
+                                     f"popcount engine")
+            chains[fused] = got
+        first = first or ((tx, tws, qps), chains[True])
+        # the adjacency product, with and without tile reuse (Fig. 9a)
+        th = bt.to_bit(x, bits, pack_axis=0)
+        before = dict(bitserial.LAUNCHES)
+        reuse = bt.bitmm2int(ta, th)
+        mid = dict(bitserial.LAUNCHES)
+        no_reuse = bt.bitmm2int(ta, th, policy=api.ExecutionPolicy(reuse=False))
+        after = dict(bitserial.LAUNCHES)
+        expected["bitserial_gemm"] += 1
+        expected["bgemm"] += bits
+        if (mid["bitserial_gemm"] - before["bitserial_gemm"] != 1 or
+                after["bgemm"] - mid["bgemm"] != bits or
+                after["bitserial_gemm"] != mid["bitserial_gemm"]):
+            raise AssertionError(f"{bits}b adjacency: launches {before} -> "
+                                 f"{mid} -> {after}")
+        if not torch.equal(reuse, no_reuse) or not torch.equal(
+                reuse, bt.bitmm2int(ta, th, backend="popcount")):
+            raise AssertionError(f"{bits}b adjacency: reuse=False != reuse=True")
+        level_diff = (chains[True] - chains[False]).abs().max().item()
+        emit(phase="tensor_api", bits=bits, nodes=x.shape[0],
+             widths=[x.shape[1]] + [w.shape[1] for w in weights],
+             to_bit_equals_bitpack=True, cuda_equals_popcount=True,
+             reuse_equals_no_reuse=True, fused_vs_unfused_logits_max_abs=level_diff,
+             card=card)
+    launches = dict(bitserial.LAUNCHES)
+    if launches != expected or not all(launches.values()):
+        raise AssertionError(f"tensor API launches {launches}, expected {expected}")
+
+    # one case on the CPU, where the cuda engine runs the plain versions:
+    # the fused chain at BITS[0] gives the card's logits
+    (tx, tws, qps), on_card = first
+
+    def cpu_qp(qp):
+        return None if qp is None else dataclasses.replace(
+            qp, scale=qp.scale.cpu(), zero=qp.zero.cpu())
+
+    def cpu(t):
+        return dataclasses.replace(t, data=t.data.cpu(), qp=cpu_qp(t.qp))
+
+    on_cpu = _chain(bt, api, cpu(tx), [cpu(t) for t in tws],
+                    [cpu_qp(q) for q in qps], BITS[0], backend="cuda", fused=True)
+    if not torch.equal(on_card.cpu(), on_cpu):
+        raise AssertionError("tensor API: card != CPU")
+    emit(phase="tensor_api_launches", launches=launches, expected=expected,
+         card_equals_cpu_fused=BITS[0], card=card)
+    return launches
+
+
 def phase_timing(torch, card, models, dbs, tiles):
     from repro_torch.api import DEFAULT_POLICY as pol
-    from repro_torch.core import bitops
+    from repro_torch.core import bitops, zerotile
     from repro_torch.kernels import bitserial, ops
     from repro_torch.models import gnn
 
@@ -341,12 +595,18 @@ def phase_timing(torch, card, models, dbs, tiles):
     emit(phase="kernel_timing", kernel="bitserial_gemm", schedule="dense",
          shape=[s, m, w, t, n], ms=kernel_ms, plain_ms=plain_ms,
          library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, card=card)
-    for sched in ("compact", "sgt"):
-        ms = graph_ms(torch, lambda sched=sched: ops.bitserial_gemm(
-            ap, bp, tiles=tl[sched]))
+    # the other schedules compute the same function: the same bound and the
+    # same library yardstick; mask takes a precomputed occupancy map
+    occ = zerotile.tile_occupancy_planes(
+        bitops.pad_to(bitops.pad_to(ap, 1, pol.block_m), 2, pol.block_w),
+        pol.block_m, pol.block_w)
+    jump_kw = {"mask": {"occupancy": occ}, "compact": {"tiles": tl["compact"]},
+               "sgt": {"tiles": tl["sgt"]}}
+    for sched, kw in jump_kw.items():
+        ms = graph_ms(torch, lambda kw=kw: ops.bitserial_gemm(ap, bp, **kw))
         emit(phase="kernel_timing", kernel="bitserial_gemm", schedule=sched,
-             shape=[s, m, w, t, n], ms=ms, bound_ms=bound_ms, bound_by=bound_by,
-             card=card)
+             shape=[s, m, w, t, n], ms=ms, library_ms=library_ms,
+             bound_ms=bound_ms, bound_by=bound_by, card=card)
     # and at GIN's widest feature GEMM: 8-bit (M, 128) x 8-bit (128, 64)
     gen = torch.Generator().manual_seed(3)
     xq = torch.randint(0, 256, (m, 128), generator=gen, dtype=torch.int32)
@@ -362,6 +622,134 @@ def phase_timing(torch, card, models, dbs, tiles):
          shape=list(xp.shape) + [8, 64], ms=ms, plain_ms=ms_plain,
          library_ms_float64=ms_lib, bound_ms=b_ms, bound_by=b_by, card=card)
     return kernel_ms, plain_ms, library_ms, bound_ms, bound_by
+
+
+def phase_new_kernel_timing(torch, card, models, dbs):
+    """Each new kernel alone at its Tensor API shape on batch 0. Returns
+    {kernel: (ms, plain_ms, bound_ms, bound_by, library_ms)}."""
+    from repro_torch.api import DEFAULT_POLICY as pol
+    from repro_torch.core import bitops, bittensor as bt
+    from repro_torch.core.quantize import calibrate
+    from repro_torch.kernels import bgemm, bitpack, bitserial, ops
+
+    db = dbs[0]
+    x, adj = db["x"], db["adj"]
+    m, k = x.shape
+    w0 = models["qgtc-gcn"][1]["layer0"]["w"]
+    n = w0.shape[1]
+    out = {}
+
+    # bitserial_fused at the first bitmm2bit: 8-bit (2304, 128) @ (128, 16)
+    tx, tw = bt.to_bit(x, 8, pack_axis=1), bt.to_bit(w0, 8, pack_axis=0)
+    qp = calibrate(bt.bitmm2int(tx, tw, backend="popcount").float(), 8)
+    alpha = (1.0 / qp.scale).broadcast_to((m, 1)).contiguous()
+    beta = (-qp.zero / qp.scale).broadcast_to((1, n)).contiguous()
+    ap, bp = tx.data, tw.data
+    a_pad = bitops.pad_to(bitops.pad_to(ap, 1, pol.block_m), 2, pol.block_w)
+    b_pad = bitops.pad_to(bp, 1, pol.block_w)
+    al = bitops.pad_to(alpha, 0, pol.block_m)
+
+    def fused():
+        return ops.bitserial_fused(ap, bp, alpha, beta, out_bits=8, relu=False)
+
+    def unfused():
+        return bitserial.fused_epilogue(ops.bitserial_gemm(ap, bp), alpha, beta,
+                                        8, False)
+
+    if not torch.equal(fused(), unfused()):
+        raise AssertionError("fused kernel != bitserial_gemm + torch epilogue")
+    ms = graph_ms(torch, fused)
+    unfused_ms = graph_ms(torch, unfused)
+    plain_ms = time_ms(torch, lambda: bitserial.bitserial_fused_plain(
+        a_pad, b_pad, al, beta, out_bits=8, relu=False, block_m=pol.block_m,
+        block_w=pol.block_w), reps=3)
+    b_ms, b_by = bound(ap, 8, n, fused=True)
+    out["bitserial_fused"] = (ms, plain_ms, b_ms, b_by, None)
+    emit(phase="kernel_timing", kernel="bitserial_fused", schedule="dense",
+         shape=list(ap.shape) + [8, n], ms=ms, plain_ms=plain_ms,
+         unfused_ms=unfused_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by,
+         card=card)
+
+    # bgemm at one plane pair of the adjacency product: the 1-bit
+    # (2304, 2304) adjacency x the top plane of the 8-bit features
+    a1 = bitops.pack_a(adj, 1)[0]
+    plane = bt.to_bit(x, 8, pack_axis=0).data[7]
+    plane_vals = bitops.unpack_along_axis(plane, dim=0, size=adj.shape[1])
+    a_f, p_f = adj.float(), plane_vals.float()
+    if not torch.equal(torch.matmul(a_f, p_f).to(torch.int32), ops.bgemm(a1, plane)):
+        raise AssertionError("bgemm != float32 matmul of the 0/1 values")
+    ms = graph_ms(torch, lambda: ops.bgemm(a1, plane))
+    plain_ms = time_ms(torch, lambda: bgemm.bgemm_plain(
+        a1, plane, block_m=pol.block_m, block_w=pol.block_w), reps=3)
+    library_ms = graph_ms(torch, lambda: torch.matmul(a_f, p_f))
+    b_ms, b_by = bound(a1[None], 1, plane.shape[1])
+    out["bgemm"] = (ms, plain_ms, b_ms, b_by, library_ms)
+    emit(phase="kernel_timing", kernel="bgemm", schedule="dense",
+         shape=list(a1.shape) + [plane.shape[1]], ms=ms, plain_ms=plain_ms,
+         library_ms=library_ms, bound_ms=b_ms, bound_by=b_by, card=card)
+
+    # bitpack of the features at 8 bits, as to_bit quantizes them
+    scale, zero = tx.qp.scale, tx.qp.zero
+    packed = ops.bitpack(x, scale, zero, nbits=8)
+    words = packed.shape[2]
+    ms = graph_ms(torch, lambda: ops.bitpack(x, scale, zero, nbits=8))
+    plain_ms = time_ms(torch, lambda: bitpack.bitpack_plain(
+        x, scale, zero, nbits=8, words=words), reps=3)
+    # bytes: x read, the planes written; five operations an element
+    # (subtract, divide, floor, two clips), one ballot a bit a word
+    b_ms, b_by = roofline(4 * m * k + 4 * 8 * m * words + 8,
+                          5 * m * k + 8 * m * words)
+    out["bitpack"] = (ms, plain_ms, b_ms, b_by, None)
+    emit(phase="kernel_timing", kernel="bitpack", shape=[m, k, 8, words],
+         ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+         bound_by=b_by, card=card)
+    return out
+
+
+def phase_fig9a(torch, card, dbs):
+    """Paper Fig. 9a on the card: the adjacency product with tile reuse
+    (one bitserial_gemm) and without (one bgemm per plane pair)."""
+    from repro_torch import api
+    from repro_torch.core import bitops
+    from repro_torch.kernels import bitserial
+
+    adj = dbs[0]["adj"]
+    m = adj.shape[0]
+    gen = torch.Generator().manual_seed(5)
+    reuse, no_reuse = api.ExecutionPolicy(), api.ExecutionPolicy(reuse=False)
+    for a_name, a in (("batch0_adjacency", adj), ("all_ones", torch.ones_like(adj))):
+        ap = bitops.pack_a(a, 1)
+        for bits in (2, 4, 8):
+            xq = torch.randint(0, 1 << bits, (m, 128), generator=gen,
+                               dtype=torch.int32).to(DEVICE)
+            xp = bitops.pack_b(xq, bits)
+            runs = {"reuse": lambda: api.bitserial_mm_packed(ap, xp, policy=reuse),
+                    "no_reuse": lambda: api.bitserial_mm_packed(ap, xp,
+                                                                policy=no_reuse)}
+            launches = {}
+            for name, fn in runs.items():
+                before = dict(bitserial.LAUNCHES)
+                fn()
+                launches[name] = {k: v - before[k]
+                                  for k, v in bitserial.LAUNCHES.items()
+                                  if v != before[k]}
+            if launches != {"reuse": {"bitserial_gemm": 1},
+                            "no_reuse": {"bgemm": bits}}:
+                raise AssertionError(f"fig9a launches: {launches}")
+            if not torch.equal(runs["reuse"](), runs["no_reuse"]()):
+                raise AssertionError(f"fig9a {a_name} {bits}b: results differ")
+            # in turns: reuse, no_reuse, no_reuse, reuse
+            order = ("reuse", "no_reuse", "no_reuse", "reuse")
+            ev = {name: [] for name in runs}
+            for name in order:
+                ev[name].append(time_ms(torch, runs[name]))
+            graph = {name: graph_ms(torch, fn) for name, fn in runs.items()}
+            ms = {name: statistics.median(v) for name, v in ev.items()}
+            emit(phase="fig9a", a=a_name, bits=bits, shape=[m, m, 128],
+                 reuse_ms=ms["reuse"], no_reuse_ms=ms["no_reuse"],
+                 ratio=ms["no_reuse"] / ms["reuse"],
+                 reuse_graph_ms=graph["reuse"], no_reuse_graph_ms=graph["no_reuse"],
+                 turns_ms=ev, launches=launches, card=card)
 
 
 def phase_profile(torch, card, models, dbs, reps=5):
@@ -418,28 +806,39 @@ def main() -> int:
 
     card = card_line()
     print(card, flush=True)
-    from repro_torch.kernels import bitserial
+    from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
-    bitserial.build()
-    bitserial._library()
-    emit(phase="build", kernel="bitserial_gemm", seconds=time.perf_counter() - t0,
-         torch=torch.__version__, cuda=torch.version.cuda, card=card)
+    _build.build()
+    _build.library()
+    emit(phase="build", kernels=list(_build.LAUNCHES),
+         sources=[str(p.relative_to(REPO)) for p in _build.sources()],
+         seconds=time.perf_counter() - t0, torch=torch.__version__,
+         cuda=torch.version.cuda, card=card)
 
     max_err = phase_kernel_vs_plain(torch, card)
+    errs = phase_new_kernels_vs_plain(torch, card)
     models, dbs, tiles, launches = phase_main_path(torch, card)
+    api_launches = phase_tensor_api(torch, card, models, dbs)
     kernel_ms, plain_ms, library_ms, bound_ms, bound_by = phase_timing(
         torch, card, models, dbs, tiles)
+    timing = phase_new_kernel_timing(torch, card, models, dbs)
+    phase_fig9a(torch, card, dbs)
     phase_profile(torch, card, models, dbs)
 
+    rows = [dict(name="bitserial_gemm", launches=launches, max_abs_err=max_err,
+                 ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                 bound_by=bound_by, library_ms=library_ms)]
+    for name, (ms, p_ms, b_ms, b_by, lib_ms) in timing.items():
+        rows.append(dict(name=name, launches=api_launches[name],
+                         max_abs_err=errs[name], ms=ms, plain_ms=p_ms,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+    kernels = [{"name": r["name"], "route": "cuda",
+                "source": KERNEL_SOURCES[r["name"]][0],
+                "replaces": KERNEL_SOURCES[r["name"]][1],
+                **{k: v for k, v in r.items() if k != "name"}} for r in rows]
     print(card, flush=True)
-    emit(kernels=[{
-        "name": "bitserial_gemm", "route": "cuda",
-        "source": "src/repro_torch/csrc/bitserial.cu",
-        "replaces": "src/repro/kernels/bitserial.py:245",
-        "launches": launches, "max_abs_err": max_err, "ms": kernel_ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms}])
+    emit(kernels=kernels)
     emit(ok=True, device={"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                           "count": torch.cuda.device_count()})
     return 0

@@ -4,7 +4,8 @@
   ExecutionPolicy  — frozen dataclass of tunables (policy.py)
   register/use     — registry and scoped defaults:
                          with repro_torch.api.use("cuda", policy=pol): ...
-  bitserial_mm, bitserial_mm_packed — the dispatch functions
+  bitserial_mm, bitserial_mm_packed, bgemm, bitpack,
+  bitserial_fused  — the dispatch functions
   repro_torch.api.nn — functional layers (qlinear, qgraph_conv)
 
 Every dispatch function takes optional ``backend=`` / ``policy=``, which
@@ -23,7 +24,8 @@ __all__ = [
     "Backend", "UnsupportedOpError", "OPS",
     "ExecutionPolicy", "DEFAULT_POLICY", "DEFAULT_BACKEND",
     "register", "get_backend", "list_backends", "use", "set_default",
-    "current", "resolve", "bitserial_mm", "bitserial_mm_packed",
+    "current", "resolve", "bitserial_mm", "bitserial_mm_packed", "bgemm",
+    "bitpack", "bitserial_fused",
 ]
 
 
@@ -57,3 +59,28 @@ def bitserial_mm_packed(a_packed, b_packed, *, backend=None, policy=None,
     be, pol = resolve("bitserial_mm", backend=backend, policy=policy, s=s, t=t)
     return be.bitserial_mm(a_packed, b_packed, policy=pol,
                            **_jump_kw(be, tiles))
+
+
+def bgemm(a_packed, b_packed, *, backend=None, policy=None, tiles=None):
+    """1-bit (M,W) x (W,N) packed GEMM -> int32 (zero-tile jump per policy)."""
+    be, pol = resolve("bgemm", backend=backend, policy=policy)
+    return be.bgemm(a_packed, b_packed, policy=pol, **_jump_kw(be, tiles))
+
+
+def bitpack(x, scale, zero, *, nbits: int, backend=None, policy=None):
+    """Quantize + 3D-stacked pack: (M,K) f32 -> (nbits, M, ceil(K/32))."""
+    be, pol = resolve("bitpack", backend=backend, policy=policy,
+                      s=nbits, t=nbits)
+    return be.bitpack(x, scale, zero, nbits=nbits, policy=pol)
+
+
+def bitserial_fused(a_packed, b_packed, alpha, beta, *, out_bits: int,
+                    relu: bool = True, backend=None, policy=None,
+                    tiles=None):
+    """Packed GEMM with the fused rescale+requantize epilogue (§4.5)."""
+    s, t = a_packed.shape[0], b_packed.shape[0]
+    be, pol = resolve("bitserial_fused", backend=backend, policy=policy,
+                      s=s, t=t)
+    return be.bitserial_fused(a_packed, b_packed, alpha, beta,
+                              out_bits=out_bits, relu=relu, policy=pol,
+                              **_jump_kw(be, tiles))

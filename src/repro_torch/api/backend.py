@@ -4,6 +4,9 @@ A Backend implements some of the capability ops over the packed bit-plane
 layouts (``core.bitops.pack_a`` / ``pack_b``):
 
   bitserial_mm    — (s,M,W) x (t,W,N) packed -> exact int32 (M,N)
+  bgemm           — (M,W) x (W,N) 1-bit packed -> int32 (M,N)
+  bitpack         — (M,K) f32 -> quantize + pack -> (nbits, M, ceil(K/32))
+  bitserial_fused — bitserial_mm with the §4.5 rescale+requantize epilogue
   bitserial_jump  — capability FLAG (no method): the engine consumes
                     precomputed compact zero-tile artifacts (``tiles=``)
                     and ``policy.jump``
@@ -11,9 +14,8 @@ layouts (``core.bitops.pack_a`` / ``pack_b``):
                     tagged ``(idx, counts, s_w, "sgt")`` word-column remap
 
 Dispatch strips ``tiles=`` for an engine without the flag: jumping
-changes the schedule, never the result. The reference's other ops
-(bgemm, bitpack, wq_mm, bitserial_fused) join the list as their kernels
-are ported.
+changes the schedule, never the result. The reference's ``wq_mm`` joins
+the list with its kernel and the LM stack.
 """
 from __future__ import annotations
 
@@ -23,7 +25,8 @@ from repro_torch.core import bitops
 
 __all__ = ["Backend", "UnsupportedOpError", "OPS"]
 
-OPS = ("bitserial_mm", "bitserial_jump", "bitserial_sgt")
+OPS = ("bitserial_mm", "bgemm", "bitpack", "bitserial_fused",
+       "bitserial_jump", "bitserial_sgt")
 
 
 class UnsupportedOpError(NotImplementedError):
@@ -62,6 +65,19 @@ class Backend(abc.ABC):
         out = self.bitserial_mm(bitops.pack_a(aq, s), bitops.pack_b(bq, t),
                                 policy=policy, **kw)
         return out[: aq.shape[0], : bq.shape[1]]
+
+    def bgemm(self, a_packed, b_packed, *, policy, tiles=None):
+        """(M,W) x (W,N) packed 1-bit GEMM -> int32 (M,N)."""
+        raise UnsupportedOpError(f"{self.name} does not provide bgemm")
+
+    def bitpack(self, x, scale, zero, *, nbits: int, policy):
+        """Quantize (Eq. 2) + 3D-stacked pack -> (nbits, M, ceil(K/32))."""
+        raise UnsupportedOpError(f"{self.name} does not provide bitpack")
+
+    def bitserial_fused(self, a_packed, b_packed, alpha, beta, *,
+                        out_bits: int, relu: bool, policy, tiles=None):
+        """bitserial_mm + fused alpha*acc+beta -> (relu) -> requantize."""
+        raise UnsupportedOpError(f"{self.name} does not provide bitserial_fused")
 
     def __repr__(self):
         caps = ",".join(sorted(self.capabilities))

@@ -5,11 +5,14 @@
               which has no integer matmul for these shapes and is exact
               while every sum stays below 2**53.
   popcount  — packed AND+popcount in plain torch: the bit-exact oracle.
-  cuda      — the hand-written bit-serial kernel (kernels/ops.py) with
-              zero-tile jumping; the default engine. On a CPU tensor it
-              takes the kernel's plain version.
+  cuda      — the hand-written kernels (kernels/ops.py) with zero-tile
+              jumping; the default engine. On a CPU tensor each takes its
+              plain version.
 
-All three return IDENTICAL int32 results for any (s, t) in 1..8.
+All three return IDENTICAL int32 results for any (s, t) in 1..8; torch_dot
+and popcount take operands of up to 32 bits, as the reference's xla_dot
+and popcount do, and the cuda engine raises above 8 (its kernel shifts by
+p + q < 32), because dispatch never falls back.
 """
 from __future__ import annotations
 
@@ -19,8 +22,12 @@ from repro_torch.api.backend import Backend
 from repro_torch.api.registry import register
 from repro_torch.core import bitops
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.bitpack import quantize_pack
+from repro_torch.kernels.bitserial import fused_epilogue
 
 __all__ = ["TorchDotBackend", "PopcountBackend", "CudaBackend"]
+
+_CORE_OPS = frozenset({"bitserial_mm", "bgemm", "bitpack", "bitserial_fused"})
 
 
 def _int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -30,16 +37,33 @@ def _int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a.to(torch.float64) @ b.to(torch.float64)).to(torch.int64)
 
 
-class TorchDotBackend(Backend):
+class _PlainTorchBackend(Backend):
+    """What torch_dot and popcount share: bitpack and the fused epilogue
+    in plain torch over the engine's own bitserial_mm. The plane loops are
+    bitwidth-agnostic; exactness is bounded only by the int32 result, as
+    in the reference."""
+    capabilities = _CORE_OPS
+    max_bits = 32
+
+    def bitpack(self, x, scale, zero, *, nbits, policy):
+        return quantize_pack(x, scale, zero, nbits)
+
+    def bitserial_fused(self, a_packed, b_packed, alpha, beta, *,
+                        out_bits, relu, policy):
+        acc = self.bitserial_mm(a_packed, b_packed, policy=policy)
+        return fused_epilogue(acc, alpha, beta, out_bits, relu)
+
+
+class TorchDotBackend(_PlainTorchBackend):
     name = "torch_dot"
-    capabilities = frozenset({"bitserial_mm"})
 
     def bitserial_mm_vals(self, aq, bq, s, t, *, policy):
         # One wide product over the bit-masked values: plane i of
         # bit_decompose reads exactly bit i, so masking to s (t) bits is
         # the plane sum.
-        prod = _int_matmul(aq & ((1 << s) - 1), bq & ((1 << t) - 1))
-        return bitops.wrap_int32(prod)
+        mask_a = (1 << s) - 1 if s < 32 else -1
+        mask_b = (1 << t) - 1 if t < 32 else -1
+        return bitops.wrap_int32(_int_matmul(aq & mask_a, bq & mask_b))
 
     def bitserial_mm(self, a_packed, b_packed, *, policy):
         a_planes = bitops.unpack_along_axis(a_packed, dim=2)
@@ -51,26 +75,52 @@ class TorchDotBackend(Backend):
                 acc += _int_matmul(a_planes[i], b_planes[j]) << (i + j)
         return bitops.wrap_int32(acc)
 
+    def bgemm(self, a_packed, b_packed, *, policy):
+        return self.bitserial_mm(a_packed[None], b_packed[None], policy=policy)
 
-class PopcountBackend(Backend):
+
+class PopcountBackend(_PlainTorchBackend):
     name = "popcount"
-    capabilities = frozenset({"bitserial_mm"})
 
     def bitserial_mm(self, a_packed, b_packed, *, policy):
         return bitops.bitserial_matmul_packed(a_packed, b_packed)
 
+    def bgemm(self, a_packed, b_packed, *, policy):
+        return bitops.popcount_matmul_packed(a_packed, b_packed)
+
 
 class CudaBackend(Backend):
     name = "cuda"
-    capabilities = frozenset({"bitserial_mm", "bitserial_jump", "bitserial_sgt"})
+    capabilities = _CORE_OPS | {"bitserial_jump", "bitserial_sgt"}
 
     def bitserial_mm(self, a_packed, b_packed, *, policy, tiles=None):
-        if not policy.reuse:
-            raise NotImplementedError(
-                "reuse=False runs one 1-bit bgemm pass per plane pair; "
-                "the bgemm kernel is not ported yet")
-        return kops.bitserial_gemm(a_packed, b_packed, policy=policy,
-                                   tiles=tiles)
+        if policy.reuse:
+            return kops.bitserial_gemm(a_packed, b_packed, policy=policy,
+                                       tiles=tiles)
+        # §4.4 ablation (paper Fig. 9a): one 1-bit bgemm pass per plane
+        # pair, so A's words are loaded s*t times instead of once. The
+        # tiles are the plane-OR artifacts, valid for every single plane.
+        acc = torch.zeros((a_packed.shape[1], b_packed.shape[2]),
+                          dtype=torch.int64, device=a_packed.device)
+        for i in range(a_packed.shape[0]):
+            for j in range(b_packed.shape[0]):
+                acc += kops.bgemm(a_packed[i], b_packed[j], policy=policy,
+                                  tiles=tiles).to(torch.int64) << (i + j)
+        return bitops.wrap_int32(acc)
+
+    def bgemm(self, a_packed, b_packed, *, policy, tiles=None):
+        return kops.bgemm(a_packed, b_packed, policy=policy, tiles=tiles)
+
+    def bitpack(self, x, scale, zero, *, nbits, policy):
+        out = kops.bitpack(x, scale, zero, nbits=nbits, policy=policy)
+        words = -(-x.shape[1] // bitops.WORD)
+        return out[:, :, :words]  # crop the block padding words
+
+    def bitserial_fused(self, a_packed, b_packed, alpha, beta, *,
+                        out_bits, relu, policy, tiles=None):
+        return kops.bitserial_fused(a_packed, b_packed, alpha, beta,
+                                    out_bits=out_bits, relu=relu,
+                                    policy=policy, tiles=tiles)
 
 
 register(TorchDotBackend())

@@ -11,9 +11,12 @@ The field set is the reference's (``repro.api.policy``):
   jump                    — zero-tile jumping (§4.3): none | mask | compact
                             | sgt (single-word columns, kernels/sgt.py)
   reuse                   — §4.4 tile reuse: the s*t plane loop inside one
-                            kernel (False needs the 1-bit bgemm kernel,
-                            not yet ported)
-  fused_requantize        — the §4.5 fused epilogue (not yet ported)
+                            kernel. False is the Fig. 9a ablation: the
+                            cuda engine runs one 1-bit bgemm pass per plane
+                            pair instead
+  fused_requantize        — core.bittensor.bitmm2bit with a scalar out_qp
+                            runs the §4.5 requantize inside the GEMM's
+                            epilogue (api.bitserial_fused)
   interpret               — kept for parity with the reference. The port
                             has no interpret mode: a CPU tensor takes a
                             kernel's plain version, a CUDA tensor the kernel.

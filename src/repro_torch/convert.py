@@ -1,18 +1,22 @@
-"""Carry parameters across from the JAX reference.
+"""Carry state across from the JAX reference, as numpy arrays.
 
 ``params_from_jax`` takes the reference's ``repro.models.gnn.init_params``
 output with every leaf turned into a numpy array (``jax.tree.map(
 np.asarray, params)``) and returns the port's parameter dict, so that both
-packages compute the same function. It needs no JAX itself.
+packages compute the same function. ``bittensor_from_jax`` takes a
+reference BitTensor's fields (data as uint32, nbits, shape, pack_axis,
+scale, zero) and returns the port's ``BitTensor``. Neither needs JAX.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core.bittensor import BitTensor
+from repro_torch.core.quantize import QuantParams
 from repro_torch.device import resolve_device
 
-__all__ = ["params_from_jax"]
+__all__ = ["params_from_jax", "bittensor_from_jax"]
 
 
 def params_from_jax(params_np: dict, device=None) -> dict:
@@ -24,3 +28,19 @@ def params_from_jax(params_np: dict, device=None) -> dict:
                 for k, v in p.items()}
         for layer, p in params_np.items()
     }
+
+
+def bittensor_from_jax(data, nbits: int, shape, pack_axis: int, scale=None,
+                       zero=None, device=None) -> BitTensor:
+    """A reference BitTensor's fields -> the port's BitTensor on ``device``
+    (None means the card). ``data`` holds uint32 words; the port keeps the
+    same bit patterns as int32. ``scale``/``zero`` are None for a BitTensor
+    without quantization parameters."""
+    dev = resolve_device(device)
+    words = np.ascontiguousarray(np.asarray(data, dtype=np.uint32)).view(np.int32)
+    qp = None
+    if scale is not None:
+        qp = QuantParams(nbits, torch.tensor(np.asarray(scale, np.float32), device=dev),
+                         torch.tensor(np.asarray(zero, np.float32), device=dev))
+    return BitTensor(torch.tensor(words, device=dev), nbits, tuple(shape),
+                     pack_axis, qp)

@@ -1,137 +1,31 @@
-// Any-bitwidth bit-serial GEMM for Hopper (sm_90a), by 1-bit composition.
+// Any-bitwidth bit-serial GEMM for Hopper (sm_90a), by 1-bit composition,
+// plain and with the §4.5 fused requantize epilogue.
 //
 //   A (s, M, W) x B (t, W, N) 32-bit words  ->  C (M, N) int32
 //   C = sum_{p<s, q<t} 2^(p+q) * sum_w popcount(A_p[m, w] & B_q[w, n])
+//   fused: C = clip(floor(max?(f32(C) * alpha[m] + beta[n], 0)), 0, qmax)
 //
-// Replaces the TPU kernel src/repro/kernels/bitserial.py:bitserial_gemm
-// (built by _pallas_bitserial; bodies _kernel, _kernel_mask and
-// _kernel_compact, the latter run at one-word K tiles for sgt). One kernel
-// serves all four schedules; they differ only in where the K loop of a row
-// tile takes its tile ids from:
+// Replaces the TPU kernels src/repro/kernels/bitserial.py:bitserial_gemm
+// and :bitserial_fused (both built by _pallas_bitserial; bodies _kernel,
+// _kernel_mask and _kernel_compact, the latter run at one-word K tiles for
+// sgt; the fused epilogue is _store). The kernel body, its schedules and
+// its epilogue are in bitserial_tile.cuh.
 //
-//   dense    k = step,                    step < W / kw
-//   mask     k = step, skipped when occ[i, step] == 0
-//   list     k = idx[i, step],            step < min(cnt[i], steps)
-//            (compact: kw = block_w words; sgt: kw = 1 word)
-//
-// The artifacts are per row tile of block_m rows and K tiles of kw words,
-// the grid they were built on; a list id outside [0, W / kw) is skipped.
-// A row tile that visits no K tile still writes its zeros.
-//
-// Bound on this card: the function reads s*M*W*4 + t*W*N*4 bytes and
-// writes M*N*4; it does s*t*M*N*W 32-bit AND+popcount steps (fewer under
-// the jump schedules). At the GNN path's shapes (N = 16..128, W <= 72)
-// neither bound is reached: a call takes a few microseconds and launch
-// latency dominates.
-//
-// Design, simple and exact: one block per (row tile i, column tile), one
-// thread per output element. Per K tile the block stages the A words of all
-// s planes and the B words of all t planes in shared memory (B read
-// coalesced along N, the ragged N edge masked), so each A word is loaded
-// once for all s*t plane pairs (paper §4.4). Each thread accumulates its
-// output in a uint32_t, so overflow wraps as the reference's int32 does.
+// Bound on this card: the function reads s*M*W*4 + t*W*N*4 bytes (and M + N
+// floats of alpha and beta) and writes M*N*4; it does s*t*M*N*W 32-bit
+// AND+popcount steps (fewer under the jump schedules). At the GNN path's
+// shapes (N = 16..128, W <= 72) neither bound is reached: a call takes a
+// few microseconds and launch latency and the per-K-step barriers dominate.
 // The paper's b1 tensor-core design (mma.sync m16n8k256 .and.popc) is later
 // work.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
-//             -shared -Xcompiler -fPIC  (plain C interface, loaded by ctypes)
+//             -Xcompiler -fPIC, linked with the other csrc/*.cu into one
+//             shared library (plain C interface, loaded by ctypes). Never
+//             with --use_fast_math: the epilogue must round as IEEE float32.
 
-#include <cstddef>
-#include <cstdint>
+#include "bitserial_tile.cuh"
 
-#include <cuda_runtime.h>
-
-namespace {
-
-// schedule 0 is dense
-constexpr int kMask = 1;
-constexpr int kList = 2;
-
-__global__ void bitserial_kernel(const uint32_t* __restrict__ a,
-                                 const uint32_t* __restrict__ b,
-                                 int32_t* __restrict__ c, int s, int t, int m,
-                                 int w, int n, int kw, int schedule,
-                                 const int32_t* __restrict__ occ,
-                                 const int32_t* __restrict__ idx,
-                                 int idx_stride,
-                                 const int32_t* __restrict__ cnt, int steps) {
-  extern __shared__ uint32_t smem[];
-  const int block_m = blockDim.y;
-  const int block_n = blockDim.x;
-  uint32_t* a_s = smem;                              // [s][block_m][kw]
-  uint32_t* b_s = smem + s * block_m * kw;           // [t][kw][block_n]
-
-  const int i = blockIdx.x;                          // row tile
-  const int col0 = blockIdx.y * block_n;
-  const int r = threadIdx.y;
-  const int cl = threadIdx.x;
-  const int tid = r * block_n + cl;
-  const int nthreads = block_m * block_n;
-  const int k_tiles = w / kw;
-  const int a_elems = s * block_m * kw;
-  const int b_elems = t * kw * block_n;
-
-  int live = steps;
-  if (schedule == kList) live = min(cnt[i], steps);
-
-  uint32_t acc = 0;
-  for (int step = 0; step < live; ++step) {
-    // k depends only on (i, step): every thread of the block takes the same
-    // branch, so the skips below never split a __syncthreads().
-    int k = step;
-    if (schedule == kList) {
-      k = idx[static_cast<size_t>(i) * idx_stride + step];
-      if (k < 0 || k >= k_tiles) continue;
-    } else if (schedule == kMask &&
-               occ[static_cast<size_t>(i) * k_tiles + step] == 0) {
-      continue;
-    }
-    const size_t w0 = static_cast<size_t>(k) * kw;
-    for (int e = tid; e < a_elems; e += nthreads) {
-      const int p = e / (block_m * kw);
-      const int rem = e - p * block_m * kw;
-      const int rr = rem / kw;
-      const int ww = rem - rr * kw;
-      a_s[e] = a[(static_cast<size_t>(p) * m +
-                  static_cast<size_t>(i) * block_m + rr) * w + w0 + ww];
-    }
-    for (int e = tid; e < b_elems; e += nthreads) {
-      const int q = e / (kw * block_n);
-      const int rem = e - q * kw * block_n;
-      const int ww = rem / block_n;
-      const int col = col0 + rem - ww * block_n;
-      b_s[e] = col < n
-                   ? b[(static_cast<size_t>(q) * w + w0 + ww) * n + col]
-                   : 0u;
-    }
-    __syncthreads();
-    for (int ww = 0; ww < kw; ++ww) {
-      for (int p = 0; p < s; ++p) {
-        const uint32_t av = a_s[(p * block_m + r) * kw + ww];
-        if (av == 0u) continue;
-        for (int q = 0; q < t; ++q) {
-          acc += static_cast<uint32_t>(
-                     __popc(av & b_s[(q * kw + ww) * block_n + cl]))
-                 << (p + q);
-        }
-      }
-    }
-    __syncthreads();
-  }
-  const int col = col0 + cl;
-  if (col < n) {
-    c[(static_cast<size_t>(i) * block_m + r) * n + col] =
-        static_cast<int32_t>(acc);
-  }
-}
-
-}  // namespace
-
-// Launches on `stream` and returns cudaGetLastError() (0 on success). The
-// caller has checked shapes: m % block_m == 0, w % kw == 0, block_m *
-// block_n <= 1024, 1 <= s, t <= 8, and for the list schedule
-// steps <= idx_stride. `occ` is (m / block_m, w / kw); `idx` is
-// (m / block_m, idx_stride); `cnt` is (m / block_m,).
 extern "C" int bitserial_gemm_launch(const void* a, const void* b, void* c,
                                      int s, int t, int m, int w, int n,
                                      int block_m, int block_n, int kw,
@@ -139,21 +33,25 @@ extern "C" int bitserial_gemm_launch(const void* a, const void* b, void* c,
                                      const void* idx, int idx_stride,
                                      const void* cnt, int steps,
                                      void* stream) {
-  const size_t smem = sizeof(uint32_t) *
-                      (static_cast<size_t>(s) * block_m * kw +
-                       static_cast<size_t>(t) * kw * block_n);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        bitserial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const dim3 grid(m / block_m, (n + block_n - 1) / block_n);
-  const dim3 block(block_n, block_m);
-  bitserial_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
-      static_cast<int32_t*>(c), s, t, m, w, n, kw, schedule,
-      static_cast<const int32_t*>(occ), static_cast<const int32_t*>(idx),
-      idx_stride, static_cast<const int32_t*>(cnt), steps);
-  return static_cast<int>(cudaGetLastError());
+  return launch_tile_kernel<false, false>(a, b, c, s, t, m, w, n, block_m,
+                                          block_n, kw, schedule, occ, idx,
+                                          idx_stride, cnt, steps, Epilogue{},
+                                          stream);
+}
+
+// `alpha` is (m,) float32, padded with rows to block_m; `beta` is (n,)
+// float32; qmax = 2^out_bits - 1.
+extern "C" int bitserial_fused_launch(const void* a, const void* b, void* c,
+                                      int s, int t, int m, int w, int n,
+                                      int block_m, int block_n, int kw,
+                                      int schedule, const void* occ,
+                                      const void* idx, int idx_stride,
+                                      const void* cnt, int steps,
+                                      const void* alpha, const void* beta,
+                                      float qmax, int relu, void* stream) {
+  const Epilogue epi{static_cast<const float*>(alpha),
+                     static_cast<const float*>(beta), qmax, relu};
+  return launch_tile_kernel<false, true>(a, b, c, s, t, m, w, n, block_m,
+                                         block_n, kw, schedule, occ, idx,
+                                         idx_stride, cnt, steps, epi, stream);
 }

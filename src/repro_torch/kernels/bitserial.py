@@ -1,107 +1,45 @@
-"""Any-bitwidth bit-serial GEMM: the CUDA kernel and its plain version.
+"""Any-bitwidth bit-serial GEMM, plain and fused: the CUDA kernel and its
+plain version.
 
     A (s, M, W) x B (t, W, N) 32-bit words  ->  C (M, N) int32
     C = sum_{i<s, j<t} 2^(i+j) * popcount_gemm(A_i, B_j)
 
-``bitserial_gemm`` takes operands already padded to the tile grid (M to
-``block_m``, W to ``block_w``; N is not padded, the kernel masks it) and
-at most one jump artifact, as the reference's
-``repro.kernels.bitserial.bitserial_gemm`` does:
+``bitserial_fused`` adds the §4.5 epilogue on the way out:
+y = f32(C) * alpha[row] + beta[col], ReLU if asked, floor, clip to
+[0, 2^out_bits - 1], int32.
+
+Both take operands already padded to the tile grid (M to ``block_m``, W to
+``block_w``; N is not padded, the kernel masks it) and at most one jump
+artifact, as the reference's ``repro.kernels.bitserial`` does:
 
   occupancy (MT, KT)        mask: skip the k-tiles marked 0
   compact (idx, cnt, S)     visit only idx[i, :min(cnt[i], S)], k-tiles
   sgt (idx, cnt, S_w)       the same over single words
 
-A CUDA tensor goes to the kernel in ``csrc/bitserial.cu``, a CPU tensor
-to ``bitserial_gemm_plain``, which honours the same artifacts: it sums
-only the tiles or words they list, so a wrong artifact shows on the CPU
-as it would on the card. There is no fallback from one to the other.
-
-The kernel is built at first use with ``nvcc`` from the sources in this
-package into ``build/repro_torch/`` at the repository root, and loaded
-with ctypes. ``LAUNCHES["bitserial_gemm"]`` counts its launches.
+A CUDA tensor goes to the kernel in ``csrc/bitserial.cu``, a CPU tensor to
+the ``*_plain`` version, which honours the same artifacts: it sums only
+the tiles or words they list, so a wrong artifact shows on the CPU as it
+would on the card. There is no fallback from one to the other.
+``LAUNCHES["bitserial_gemm"]`` and ``LAUNCHES["bitserial_fused"]`` count
+the launches (``kernels/_build.py`` builds and loads the library).
 """
 from __future__ import annotations
-
-import ctypes
-import hashlib
-import os
-import pathlib
-import shutil
-import subprocess
-import tempfile
 
 import torch
 
 from repro_torch.core.bitops import popcount32, wrap_int32
+from repro_torch.kernels._build import (LAUNCHES, check_cuda, kernel_device,
+                                       launch, reset_launches)
 
-__all__ = ["bitserial_gemm", "bitserial_gemm_plain", "build", "LAUNCHES",
-           "reset_launches", "MAX_THREADS", "MAX_BITS"]
+__all__ = ["bitserial_gemm", "bitserial_gemm_plain", "bitserial_fused",
+           "bitserial_fused_plain", "fused_epilogue", "LAUNCHES",
+           "reset_launches", "MAX_THREADS", "MAX_BITS", "MAX_OUT_BITS"]
 
-SOURCE = pathlib.Path(__file__).resolve().parents[1] / "csrc" / "bitserial.cu"
-BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
 MAX_THREADS = 1024      # one thread per output element of a (block_m, block_n) tile
 MAX_BITS = 8            # p + q < 32 keeps the kernel's shift defined
+MAX_OUT_BITS = 30       # 2^out_bits - 1 stays an int32 after float rounding
 
 _DENSE, _MASK, _LIST = 0, 1, 2
-
-LAUNCHES = {"bitserial_gemm": 0}
-_lib = None
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = pathlib.Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       f"{SOURCE.name}")
-
-
-def build() -> pathlib.Path:
-    """Compile ``csrc/bitserial.cu`` unless a library of this exact source
-    exists; returns the shared library's path. The library's name carries
-    a hash of the source and flags, and is renamed into place whole, so
-    concurrent builds never load a half-written file."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"libbitserial-{tag}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        fn = lib.bitserial_gemm_launch
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, p, p, i, p, i, p]
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
 
 
 def _schedule(a, b, block_m, block_w, occupancy, compact, sgt):
@@ -139,13 +77,32 @@ def _schedule(a, b, block_m, block_w, occupancy, compact, sgt):
     return _LIST, kw, steps, None, idx, cnt
 
 
-def _check_cuda(name, x, device):
-    if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, expected {device}")
-    if x.dtype != torch.int32:
-        raise TypeError(f"{name} must be int32, got {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+def tile_launch_args(name, a, b, block_m, block_n, block_w, occupancy, compact, sgt):
+    """Check a launch of the tile kernel (bit-serial, fused or 1-bit);
+    returns (out, the launch's arguments from A to steps)."""
+    schedule, kw, steps, occ, idx, cnt = _schedule(
+        a, b, block_m, block_w, occupancy, compact, sgt)
+    s, m, w = a.shape
+    t, _, n = b.shape
+    if not (1 <= s <= MAX_BITS and 1 <= t <= MAX_BITS):
+        raise ValueError(f"{name} takes 1..{MAX_BITS} bit planes, got "
+                         f"s={s}, t={t}")
+    if block_m * block_n > MAX_THREADS or (block_m * block_n) % 32:
+        raise ValueError(f"block_m * block_n = {block_m * block_n} must be a "
+                         f"multiple of 32 and at most {MAX_THREADS}")
+    for nm, x in (("A", a), ("B", b), ("occupancy", occ), ("idx", idx),
+                  ("counts", cnt)):
+        if x is not None:
+            check_cuda(nm, x, a.device, torch.int32)
+    out = torch.empty((m, n), dtype=torch.int32, device=a.device)
+
+    def ptr(x):
+        return x.data_ptr() if x is not None else None
+
+    args = (a.data_ptr(), b.data_ptr(), out.data_ptr(), s, t, m, w, n,
+            block_m, block_n, kw, schedule, ptr(occ), ptr(idx),
+            idx.shape[1] if idx is not None else 0, ptr(cnt), steps)
+    return out, args
 
 
 def bitserial_gemm(a: torch.Tensor, b: torch.Tensor, *, block_m: int,
@@ -158,45 +115,47 @@ def bitserial_gemm(a: torch.Tensor, b: torch.Tensor, *, block_m: int,
     CUDA tensors launch the kernel on the current stream (no
     synchronisation); CPU tensors take ``bitserial_gemm_plain``.
     """
-    if a.device != b.device:
-        raise ValueError(f"A is on {a.device}, B on {b.device}")
-    if a.device.type == "cpu":
+    device = kernel_device(a, b)
+    if device is None:
         return bitserial_gemm_plain(a, b, block_m=block_m, block_w=block_w,
                                     occupancy=occupancy, compact=compact,
                                     sgt=sgt)
-    if a.device.type != "cuda":
-        raise ValueError(f"bitserial_gemm runs on cuda or cpu tensors, "
-                         f"got {a.device}")
-    schedule, kw, steps, occ, idx, cnt = _schedule(
-        a, b, block_m, block_w, occupancy, compact, sgt)
-    s, m, w = a.shape
-    t, _, n = b.shape
-    if not (1 <= s <= MAX_BITS and 1 <= t <= MAX_BITS):
-        raise ValueError(f"the kernel takes 1..{MAX_BITS} bit planes, got "
-                         f"s={s}, t={t}")
-    if block_m * block_n > MAX_THREADS or (block_m * block_n) % 32:
-        raise ValueError(f"block_m * block_n = {block_m * block_n} must be a "
-                         f"multiple of 32 and at most {MAX_THREADS}")
-    for name, x in (("A", a), ("B", b), ("occupancy", occ), ("idx", idx),
-                    ("counts", cnt)):
-        if x is not None:
-            _check_cuda(name, x, a.device)
-    out = torch.empty((m, n), dtype=torch.int32, device=a.device)
-    if m == 0 or n == 0:
-        return out
-    def ptr(x):
-        return x.data_ptr() if x is not None else None
+    out, args = tile_launch_args("bitserial_gemm", a, b, block_m, block_n,
+                                 block_w, occupancy, compact, sgt)
+    return launch("bitserial_gemm", out, args, device)
 
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = _library().bitserial_gemm_launch(
-            a.data_ptr(), b.data_ptr(), out.data_ptr(), s, t, m, w, n,
-            block_m, block_n, kw, schedule, ptr(occ), ptr(idx),
-            idx.shape[1] if idx is not None else 0, ptr(cnt), steps, stream)
-    if err != 0:
-        raise RuntimeError(f"bitserial_gemm launch failed: CUDA error {err}")
-    LAUNCHES["bitserial_gemm"] += 1
-    return out
+
+def _check_epilogue(alpha, beta, m, n, out_bits):
+    if tuple(alpha.shape) != (m, 1) or tuple(beta.shape) != (1, n):
+        raise ValueError(f"alpha {tuple(alpha.shape)} and beta "
+                         f"{tuple(beta.shape)} must be ({m}, 1) and (1, {n})")
+    if not 1 <= out_bits <= MAX_OUT_BITS:
+        raise ValueError(f"out_bits must be in 1..{MAX_OUT_BITS}, got {out_bits}")
+
+
+def bitserial_fused(a: torch.Tensor, b: torch.Tensor, alpha: torch.Tensor,
+                    beta: torch.Tensor, *, out_bits: int, relu: bool,
+                    block_m: int, block_n: int, block_w: int,
+                    occupancy: torch.Tensor | None = None,
+                    compact: tuple | None = None,
+                    sgt: tuple | None = None) -> torch.Tensor:
+    """``bitserial_gemm`` with the fused epilogue: (M, N) int32 in
+    [0, 2^out_bits - 1]. ``alpha`` is (M, 1) float32 on the padded rows,
+    ``beta`` (1, N) float32. CPU tensors take ``bitserial_fused_plain``."""
+    device = kernel_device(a, b)
+    _check_epilogue(alpha, beta, a.shape[1], b.shape[2], out_bits)
+    if device is None:
+        return bitserial_fused_plain(a, b, alpha, beta, out_bits=out_bits,
+                                     relu=relu, block_m=block_m,
+                                     block_w=block_w, occupancy=occupancy,
+                                     compact=compact, sgt=sgt)
+    out, args = tile_launch_args("bitserial_fused", a, b, block_m, block_n,
+                                 block_w, occupancy, compact, sgt)
+    check_cuda("alpha", alpha, device, torch.float32)
+    check_cuda("beta", beta, device, torch.float32)
+    args += (alpha.data_ptr(), beta.data_ptr(), float((1 << out_bits) - 1),
+             int(relu))
+    return launch("bitserial_fused", out, args, device)
 
 
 def _visit_counts(schedule, kw, steps, occ, idx, cnt, mt, w, device):
@@ -239,3 +198,28 @@ def bitserial_gemm_plain(a: torch.Tensor, b: torch.Tensor, *, block_m: int,
             terms = popcount32(a[i][:, :, None] & b[j][None, :, :])
             acc += (terms * visits[:, :, None]).sum(dim=1) << (i + j)
     return wrap_int32(acc)
+
+
+def fused_epilogue(acc: torch.Tensor, alpha, beta, out_bits: int,
+                   relu: bool) -> torch.Tensor:
+    """alpha*acc+beta -> (relu) -> floor+clip to unsigned out_bits (§4.5).
+
+    Two IEEE float32 steps, the product then the sum, as in the reference's
+    ``_store`` and ``_fused_epilogue``; int32 out.
+    """
+    y = acc.to(torch.float32) * alpha + beta
+    if relu:
+        y = torch.clamp_min(y, 0.0)
+    return torch.clamp(torch.floor(y), 0, (1 << out_bits) - 1).to(torch.int32)
+
+
+def bitserial_fused_plain(a: torch.Tensor, b: torch.Tensor,
+                          alpha: torch.Tensor, beta: torch.Tensor, *,
+                          out_bits: int, relu: bool, block_m: int,
+                          block_w: int, occupancy: torch.Tensor | None = None,
+                          compact: tuple | None = None,
+                          sgt: tuple | None = None) -> torch.Tensor:
+    """The fused kernel's function in plain PyTorch, on any device."""
+    acc = bitserial_gemm_plain(a, b, block_m=block_m, block_w=block_w,
+                               occupancy=occupancy, compact=compact, sgt=sgt)
+    return fused_epilogue(acc, alpha, beta, out_bits, relu)

@@ -13,10 +13,12 @@ import torch
 
 from repro_torch.api.policy import DEFAULT_POLICY, ExecutionPolicy
 from repro_torch.core import bitops, zerotile
+from repro_torch.kernels import bgemm as _bgemm
+from repro_torch.kernels import bitpack as _bitpack
 from repro_torch.kernels import bitserial as _bitserial
 from repro_torch.kernels import sgt as _sgt
 
-__all__ = ["bitserial_gemm"]
+__all__ = ["bgemm", "bitserial_gemm", "bitserial_fused", "bitpack"]
 
 
 def _resolve(policy: ExecutionPolicy | None, **overrides):
@@ -79,6 +81,52 @@ def _jump_artifacts(a, tiles_idx, tiles_cnt, occupancy, jump, block_m,
     return None, None, None
 
 
+def _vpu_only(mode, kernel):
+    if mode != "vpu":
+        raise NotImplementedError(
+            f"mode={mode!r}: the tensor-core {kernel} kernel is not built "
+            "yet; use mode='vpu'")
+
+
+def _bitserial_operands(a_packed, b_packed, tiles, occupancy, kw):
+    """Pad (s, M, W) x (t, W, N) to the grid and resolve the artifacts:
+    (a, b, dict of the kernel's tile and jump keywords)."""
+    t_idx, t_cnt, s_max, kind = _unpack_tiles(tiles)
+    bm, bw = kw["block_m"], kw["block_w"]
+    a = bitops.pad_to(bitops.pad_to(a_packed, 1, bm), 2, bw).contiguous()
+    b = bitops.pad_to(b_packed, 1, bw).contiguous()
+    occ, compact, sgt = _jump_artifacts(a, t_idx, t_cnt, occupancy,
+                                        kw["jump"], bm, bw, s_max, kind)
+    return a, b, dict(block_m=bm, block_n=kw["block_n"], block_w=bw,
+                      occupancy=occ, compact=compact, sgt=sgt)
+
+
+def bgemm(
+    a_packed: torch.Tensor,
+    b_packed: torch.Tensor,
+    *,
+    policy: ExecutionPolicy | None = None,
+    block_m: int | None = None,
+    block_n: int | None = None,
+    block_w: int | None = None,
+    mode: str | None = None,
+    jump: str | None = None,             # none | mask | compact | sgt
+    tiles: tuple | None = None,          # precomputed (idx, counts, s_max[, kind])
+    occupancy: torch.Tensor | None = None,  # precomputed (MT, KT) mask
+) -> torch.Tensor:
+    """1-bit (M,W) x (W,N) -> int32 (M,N) with zero-tile jumping.
+
+    The artifacts and the padding are those of ``bitserial_gemm`` at one
+    plane each.
+    """
+    kw = _resolve(policy, block_m=block_m, block_n=block_n, block_w=block_w,
+                  mode=mode, jump=jump)
+    _vpu_only(kw["mode"], "bgemm")
+    a, b, kern = _bitserial_operands(a_packed[None], b_packed[None], tiles,
+                                     occupancy, kw)
+    return _bgemm.bgemm(a[0], b[0], **kern)[:a_packed.shape[0]]
+
+
 def bitserial_gemm(
     a_packed: torch.Tensor,
     b_packed: torch.Tensor,
@@ -102,18 +150,64 @@ def bitserial_gemm(
     """
     kw = _resolve(policy, block_m=block_m, block_n=block_n, block_w=block_w,
                   mode=mode, jump=jump)
-    if kw["mode"] != "vpu":
-        raise NotImplementedError(
-            f"mode={kw['mode']!r}: the tensor-core bit-serial kernel is not "
-            "built yet; use mode='vpu'")
-    t_idx, t_cnt, s_max, kind = _unpack_tiles(tiles)
-    _, m, _ = a_packed.shape
-    bm, bw = kw["block_m"], kw["block_w"]
-    a = bitops.pad_to(bitops.pad_to(a_packed, 1, bm), 2, bw).contiguous()
-    b = bitops.pad_to(b_packed, 1, bw).contiguous()
-    occ, compact, sgt = _jump_artifacts(a, t_idx, t_cnt, occupancy,
-                                        kw["jump"], bm, bw, s_max, kind)
-    out = _bitserial.bitserial_gemm(a, b, block_m=bm, block_n=kw["block_n"],
-                                    block_w=bw, occupancy=occ,
-                                    compact=compact, sgt=sgt)
-    return out[:m]
+    _vpu_only(kw["mode"], "bit-serial")
+    a, b, kern = _bitserial_operands(a_packed, b_packed, tiles, occupancy, kw)
+    return _bitserial.bitserial_gemm(a, b, **kern)[:a_packed.shape[1]]
+
+
+def bitserial_fused(
+    a_packed: torch.Tensor,
+    b_packed: torch.Tensor,
+    alpha: torch.Tensor,
+    beta: torch.Tensor,
+    *,
+    out_bits: int,
+    relu: bool = True,
+    policy: ExecutionPolicy | None = None,
+    block_m: int | None = None,
+    block_n: int | None = None,
+    block_w: int | None = None,
+    mode: str | None = None,
+    jump: str | None = None,             # none | mask | compact | sgt
+    tiles: tuple | None = None,          # precomputed (idx, counts, s_max[, kind])
+    occupancy: torch.Tensor | None = None,  # precomputed (MT, KT) mask
+) -> torch.Tensor:
+    """Any-bit GEMM with the fused rescale+ReLU+requantize epilogue (§4.5).
+
+    ``alpha`` holds M values (per row), ``beta`` N (per column), as float32;
+    alpha is padded with rows to the grid. Jump artifacts behave as in
+    ``bitserial_gemm``; a row tile that visits no K tile still writes the
+    epilogue of a zero accumulator.
+    """
+    kw = _resolve(policy, block_m=block_m, block_n=block_n, block_w=block_w,
+                  mode=mode, jump=jump)
+    _vpu_only(kw["mode"], "bit-serial")
+    m, n = a_packed.shape[1], b_packed.shape[2]
+    a, b, kern = _bitserial_operands(a_packed, b_packed, tiles, occupancy, kw)
+    al = bitops.pad_to(alpha.to(torch.float32).reshape(m, 1), 0,
+                       kw["block_m"]).contiguous()
+    be = beta.to(torch.float32).reshape(1, n).contiguous()
+    return _bitserial.bitserial_fused(a, b, al, be, out_bits=out_bits,
+                                      relu=relu, **kern)[:m]
+
+
+def bitpack(
+    x: torch.Tensor,
+    scale,
+    zero,
+    *,
+    nbits: int,
+    policy: ExecutionPolicy | None = None,
+    block_w: int | None = None,
+) -> torch.Tensor:
+    """Quantize + pack (M,K) f32 -> (nbits, M, W_pad) int32 words.
+
+    The reference's shape contract: the word axis is K padded to
+    ``block_w * 32`` columns (the padding words are zero) and M is not
+    padded (the kernel has no row tiles). ``scale`` and ``zero`` are
+    scalars.
+    """
+    kw = _resolve(policy, block_w=block_w)
+    words = -(-x.shape[1] // (kw["block_w"] * bitops.WORD)) * kw["block_w"]
+    return _bitpack.bitpack(x.to(torch.float32).contiguous(), scale, zero,
+                            nbits=nbits, words=words)

@@ -68,7 +68,7 @@ def test_port_import_leaves_jax_unloaded():
             + "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             + f"{sorted(FORBIDDEN)!r}))\n"
             # importing builds no kernel: that waits for the first launch
-            + "print(repro_torch.kernels.bitserial._lib)")
+            + "print(repro_torch.kernels._build._lib)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True, cwd=ROOT, env=env)
@@ -124,11 +124,13 @@ def test_resolve_raises_instead_of_falling_back():
     with pytest.raises(UnsupportedOpError, match="test-no-ops"):
         api.resolve("bitserial_mm", backend=be)
     with pytest.raises(UnsupportedOpError, match="s=9"):
-        api.resolve("bitserial_mm", backend="popcount", s=9)
+        api.resolve("bitserial_mm", backend="cuda", s=9)
+    with pytest.raises(UnsupportedOpError, match="s=33"):
+        api.resolve("bitserial_mm", backend="popcount", s=33)
     x = torch.ones((4, 4), dtype=torch.int32)
     with pytest.raises(UnsupportedOpError):
         api.bitserial_mm(x, x, 1, 1, backend=be)
-    with api.use("popcount"), pytest.raises(UnsupportedOpError, match="s=9"):
+    with api.use("cuda"), pytest.raises(UnsupportedOpError, match="s=9"):
         api.bitserial_mm(x, x, 9, 1)
     with pytest.raises(KeyError, match="unknown backend"):
         api.bitserial_mm(x, x, 1, 1, backend="pallas")
@@ -177,11 +179,19 @@ def test_tiles_beat_occupancy_beat_recompute():
 
 
 def test_kernel_engine_rejects_what_it_cannot_run():
-    _, _, ta, tb = _packed()
+    a, b, ta, tb = _packed()
     with pytest.raises(NotImplementedError, match="mxu"):
         ops.bitserial_gemm(ta, tb, mode="mxu")
-    with pytest.raises(NotImplementedError, match="bgemm"):
-        api.bitserial_mm_packed(ta, tb, policy=api.ExecutionPolicy(reuse=False))
+    with pytest.raises(NotImplementedError, match="mxu"):
+        ops.bgemm(ta[0], tb[0], mode="mxu")
+    with pytest.raises(NotImplementedError, match="mxu"):
+        api.bgemm(ta[0], tb[0], policy=api.ExecutionPolicy(mode="mxu"))
+    # reuse=False is no longer refused: one bgemm pass per plane pair,
+    # equal to the one-kernel reuse=True product (CPU tensors: plain versions)
+    no_reuse = api.bitserial_mm_packed(ta, tb,
+                                       policy=api.ExecutionPolicy(reuse=False))
+    assert torch.equal(no_reuse, api.bitserial_mm_packed(ta, tb))
+    np.testing.assert_array_equal(no_reuse.numpy(), a.astype(np.int64) @ b)
 
 
 @pytest.mark.parametrize("kw", [dict(block_m=3, block_n=5),
