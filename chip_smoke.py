@@ -9,12 +9,16 @@ without printing a result:
   1. device and build — the card's name and power limit (nvidia-smi), and
      every kernel of src/repro_torch/csrc built into one library with nvcc.
   2. kernels against plain — each kernel and its plain PyTorch version on
-     the same CUDA tensors; every result must be equal (torch.equal):
-     bitserial_gemm (also equal to the exact product), bitserial_fused
-     (out_bits 8/4/2, ReLU on and off) and bgemm, in the dense, mask,
-     compact and sgt schedules at ragged shapes, at the paths' own shapes
-     and with an all-zero A; bitpack at nbits 1/2/5/8, K not a multiple of
-     32 and M not a multiple of block_m.
+     the same CUDA tensors. The integer kernels must be equal
+     (torch.equal): bitserial_gemm (also equal to the exact product),
+     bitserial_fused (out_bits 8/4/2, ReLU on and off) and bgemm, in the
+     dense, mask, compact and sgt schedules at ragged shapes, at the
+     paths' own shapes and with an all-zero A; bitpack at nbits 1/2/5/8, K
+     not a multiple of 32 and M not a multiple of block_m. The 4-bit
+     wq_gemm, a float product, and its plain version are each held to the
+     float32 dot-product error bound around a float64 product of the same
+     dequantized weight, at the reference test's shapes and a ragged one,
+     x in float32 and bf16, at three tile sizes.
   3. main path — ogbn-arxiv at full scale, partitioned into 1500 parts
      (Cluster-GCN's setting), batches of 20 parts; the first 8 batches
      are served through forward_qgtc for qgtc-gcn and qgtc-gin at 8, 4
@@ -30,17 +34,28 @@ without printing a result:
      and reuse=False, equal, with 1 bitserial_gemm launch against s*t
      bgemm launches; one case against the port on the CPU. Every kernel's
      launch count must be what the phase expects.
-  5. timing, fig7-style — per batch, CUDA events, median over repeats:
+  5. weight only — codeqwen1.5-7b's decode projections at full width
+     (pack_w4 on the card, x at batch 1, 8 and 128, float32 and bf16)
+     through kernels.ops.wq_gemm, each within the float32 bound, one
+     wq_gemm launch a call and no other kernel; wq_linear over a 4-bit
+     WeightQ on the cuda engine (no launch) and on the CPU, each within
+     the float32 bound of the affine product; quantize_lm_params over one
+     layer, embed and lm_head.
+  6. timing, fig7-style — per batch, CUDA events, median over repeats:
      fp32_dense, fp32_csr, qgtc at 8/4/2 bits; each kernel alone at its
      path shape (a CUDA graph of 50 calls) beside its plain version, its
      bound, and one PyTorch call of the same function where there is one
      (a float32 torch.matmul on the unpacked values, exact: every sum stays
      below 2**24), as the library yardstick, which the port never calls.
-  6. fig9a — the adjacency product with tile reuse (one bitserial_gemm)
+  7. fig9a — the adjacency product with tile reuse (one bitserial_gemm)
      and without (one bgemm per plane pair), CUDA events, at 2/4/8 bits,
      for batch 0's adjacency and for the paper's all-ones A of its size.
-  7. profile — one qgtc forward per model under torch.profiler: host wall
+  8. profile — one qgtc forward per model under torch.profiler: host wall
      time, device time of its kernels, and the device's idle share.
+  9. wq_gemm timing — at the gate projection and lm_head, batch 1, 8 and
+     128: ms (a CUDA graph of 50 calls over enough weight copies to exceed
+     L2) beside its plain version, its bound, and float32 and bf16
+     torch.matmul of the dequantized weight.
 
 The line before the last lists each kernel as JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -48,7 +63,9 @@ The line before the last lists each kernel as JSON; the last line is
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -79,7 +96,24 @@ KERNEL_SOURCES = {
     "bgemm": ("src/repro_torch/csrc/bgemm.cu", "src/repro/kernels/bgemm.py:112"),
     "bitpack": ("src/repro_torch/csrc/bitpack.cu",
                 "src/repro/kernels/bitpack.py:43"),
+    "wq_gemm": ("src/repro_torch/csrc/wqmm.cu", "src/repro/kernels/wqmm.py:62"),
 }
+# wq_gemm: the reference test's (M, K, N) and a ragged one, group sizes,
+# and tile sizes (block_m, block_n, block_k) besides the default
+WQ_SHAPES = ((1, 128, 256), (8, 256, 512), (5, 160, 64), (13, 416, 300))
+WQ_GROUPS = (32, 16)
+WQ_BLOCKS = ((8, 256, 128), (1, 64, 32), (32, 128, 64))
+# codeqwen1.5-7b (src/repro/configs/codeqwen1_5_7b.py): d_model 4096, 32
+# heads with 32 kv heads, d_ff 13440, vocab 92416; one decoder layer's
+# projections and the head, as (K, N)
+D_MODEL, D_FF, VOCAB = 4096, 13440, 92416
+CODEQWEN_PROJ = {"wq": (D_MODEL, D_MODEL), "wk": (D_MODEL, D_MODEL),
+                 "wv": (D_MODEL, D_MODEL), "wo": (D_MODEL, D_MODEL),
+                 "wg": (D_MODEL, D_FF), "wu": (D_MODEL, D_FF),
+                 "wd": (D_FF, D_MODEL), "lm_head": (D_MODEL, VOCAB)}
+# decode batch 1, 8 and 128 (decode_32k's batch, src/repro/configs/base.py)
+WQ_BATCHES = (1, 8, 128)
+L2_BYTES = 50e6  # the H100's L2: a timed weight must not stay in it
 
 
 def emit(**kw):
@@ -527,7 +561,8 @@ def phase_tensor_api(torch, card, models, dbs):
              reuse_equals_no_reuse=True, fused_vs_unfused_logits_max_abs=level_diff,
              card=card)
     launches = dict(bitserial.LAUNCHES)
-    if launches != expected or not all(launches.values()):
+    phase_kernels = ("bitserial_gemm", "bitserial_fused", "bgemm", "bitpack")
+    if launches != expected or not all(launches[k] for k in phase_kernels):
         raise AssertionError(f"tensor API launches {launches}, expected {expected}")
 
     # one case on the CPU, where the cuda engine runs the plain versions:
@@ -790,6 +825,204 @@ def phase_profile(torch, card, models, dbs, reps=5):
              card=card)
 
 
+def _wq_bound_check(torch, got, x, w64, w64_abs, what) -> float:
+    """Hold ``got`` to the float32 dot-product error bound around the
+    float64 product of ``x`` and the dequantized weight ``w64``:
+    |got - x @ W| <= K * 2^-24 * (|x| @ |W|), which holds in any summation
+    order. Returns the largest ratio of error to bound."""
+    x64 = x.double()
+    exact = x64 @ w64
+    if got.shape != exact.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: bad shape or values")
+    bnd = x.shape[1] * 2.0 ** -24 * (x64.abs() @ w64_abs)
+    err = (got.double() - exact).abs()
+    if bool((err > bnd).any()):
+        raise AssertionError(f"{what}: error above the float32 bound "
+                             f"(max {err.max().item()})")
+    return (err / bnd.clamp_min(1e-300)).max().item()
+
+
+def phase_wq_gemm_vs_plain(torch, card) -> float:
+    """wq_gemm and its plain version on the same CUDA tensors, each held to
+    the float32 error bound. Returns the largest |kernel - plain|."""
+    from repro_torch.kernels import ops, wqmm
+    from repro_torch.kernels._build import LAUNCHES
+
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    max_err, max_ratio, checks = 0.0, 0.0, 0
+    for m, k, n in WQ_SHAPES:
+        for group in WQ_GROUPS:
+            w = torch.randn((k, n), generator=gen, device=DEVICE)
+            wp, sc = wqmm.pack_w4(w, group)
+            w64 = wqmm.unpack_w4(wp, sc, group).double()
+            w64_abs = w64.abs()
+            for dtype in (torch.float32, torch.bfloat16):
+                x = torch.randn((m, k), generator=gen, device=DEVICE).to(dtype)
+                what = f"wq_gemm {(m, k, n)} group={group} {dtype}"
+                plain = wqmm.wq_gemm_plain(x, wp, sc, group=group)
+                max_ratio = max(max_ratio, _wq_bound_check(
+                    torch, plain, x, w64, w64_abs, f"plain {what}"))
+                for bm, bn, bk in WQ_BLOCKS:
+                    before = LAUNCHES["wq_gemm"]
+                    got = ops.wq_gemm(x, wp, sc, group=group, block_m=bm,
+                                      block_n=bn, block_k=bk)
+                    if LAUNCHES["wq_gemm"] != before + 1:
+                        raise AssertionError(f"{what}: the kernel did not launch")
+                    max_ratio = max(max_ratio, _wq_bound_check(
+                        torch, got, x, w64, w64_abs,
+                        f"kernel {what} blocks {(bm, bn, bk)}"))
+                    max_err = max(max_err, (got - plain).abs().max().item())
+                    checks += 1
+    emit(phase="kernel_vs_plain", kernel="wq_gemm", checks=checks,
+         shapes=[list(x) for x in WQ_SHAPES], groups=list(WQ_GROUPS),
+         blocks=[list(b) for b in WQ_BLOCKS], x_dtypes=["float32", "bfloat16"],
+         within_float32_bound=True, max_err_over_bound=max_ratio,
+         max_abs_err=max_err, card=card)
+    return max_err
+
+
+def phase_weight_only(torch, card):
+    """codeqwen1.5-7b's decode projections at full width through
+    kernels.ops.wq_gemm; wq_linear on the cuda engine against the port on
+    the CPU; quantize_lm_params over one layer, embed and lm_head. Returns
+    the wq_gemm launches and the packed gate and head weights for timing."""
+    from repro_torch.api import nn
+    from repro_torch.core.qgemm import (WeightQ, weight_dequantize,
+                                        weight_quantize)
+    from repro_torch.kernels import ops, wqmm
+    from repro_torch.kernels._build import LAUNCHES, reset_launches
+
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    weights = {name: torch.randn(shape, generator=gen, device=DEVICE) * 0.02
+               for name, shape in CODEQWEN_PROJ.items()}
+    x_dtypes = (torch.float32, torch.bfloat16)
+
+    # the path: every projection at every batch, x in float32 and bf16
+    reset_launches()
+    calls, max_ratio, packed = 0, 0.0, {}
+    for name, w in weights.items():
+        wp, sc = wqmm.pack_w4(w)
+        w64 = wqmm.unpack_w4(wp, sc, 32).double()
+        w64_abs = w64.abs()
+        for m in WQ_BATCHES:
+            x32 = torch.randn((m, w.shape[0]), generator=gen, device=DEVICE)
+            for dtype in x_dtypes:
+                x = x32.to(dtype)
+                got = ops.wq_gemm(x, wp, sc)
+                calls += 1
+                max_ratio = max(max_ratio, _wq_bound_check(
+                    torch, got, x, w64, w64_abs, f"{name} M={m} {dtype}"))
+        if name in ("wg", "lm_head"):
+            packed[name] = (wp, sc)
+        del w64, w64_abs
+    launches = dict(LAUNCHES)
+    if launches["wq_gemm"] != calls or any(
+            v for kernel, v in launches.items() if kernel != "wq_gemm"):
+        raise AssertionError(f"weight-only launches {launches}, expected "
+                             f"{calls} of wq_gemm alone")
+    emit(phase="weight_only", model="codeqwen1.5-7b",
+         projections={k: list(v) for k, v in CODEQWEN_PROJ.items()},
+         batches=list(WQ_BATCHES), x_dtypes=["float32", "bfloat16"], group=32,
+         calls=calls, launches=launches["wq_gemm"], within_float32_bound=True,
+         max_err_over_bound=max_ratio, card=card)
+
+    # wq_linear over a 4-bit WeightQ: the cuda engine's float product
+    # launches no kernel; it and the port on the CPU (torch_dot) are each
+    # held to the float32 bound of the affine product around float64
+    u, max_lin, max_card_cpu = 2.0 ** -24, 0.0, 0.0
+    for name, w in weights.items():
+        k = w.shape[0]
+        wq = weight_quantize(w, 4)
+        wq_cpu = WeightQ(wq.data.cpu(), wq.scale.cpu(), wq.zero.cpu(), 4)
+        d64, s64, z64 = wq.data.double(), wq.scale.double(), wq.zero.double()
+        d64_abs = d64.abs()
+        for m in WQ_BATCHES:
+            x = torch.randn((m, k), generator=gen, device=DEVICE)
+            before = dict(LAUNCHES)
+            on_card = nn.wq_linear(x, wq, out_dtype=torch.float32, backend="cuda")
+            if dict(LAUNCHES) != before:
+                raise AssertionError(f"wq_linear {name} M={m} launched a kernel")
+            on_cpu = nn.wq_linear(x.cpu(), wq_cpu, out_dtype=torch.float32,
+                                  backend="torch_dot").to(DEVICE)
+            x64 = x.double()
+            core, rowsum = x64 @ d64, x64.sum(-1, keepdim=True)
+            exact = core * s64 + rowsum * z64
+            bnd = (k * u * ((x64.abs() @ d64_abs) * s64.abs()
+                            + x64.abs().sum(-1, keepdim=True) * z64.abs())
+                   + 3 * u * ((core * s64).abs() + (rowsum * z64).abs()))
+            for where, y in (("card", on_card), ("cpu", on_cpu)):
+                err = (y.double() - exact).abs()
+                if y.shape != exact.shape or bool((err > bnd).any()):
+                    raise AssertionError(f"wq_linear {name} M={m} on the {where}: "
+                                         f"error above the float32 bound")
+                max_lin = max(max_lin, (err / bnd.clamp_min(1e-300)).max().item())
+            max_card_cpu = max(max_card_cpu, (on_card - on_cpu).abs().max().item())
+        del d64, d64_abs
+    emit(phase="wq_linear", model="codeqwen1.5-7b", nbits=4, engine="cuda",
+         batches=list(WQ_BATCHES), launches=0, within_float32_bound=True,
+         max_err_over_bound=max_lin, card_vs_cpu_max_abs=max_card_cpu, card=card)
+
+    # quantize_lm_params over one layer's projections, embed and lm_head
+    params = {"embed": torch.randn((VOCAB, D_MODEL), generator=gen,
+                                   device=DEVICE) * 0.02,
+              "lm_head": weights["lm_head"],
+              "layer0": {k: v for k, v in weights.items() if k != "lm_head"}}
+    params_q, stats = nn.quantize_lm_params(params, nbits=4)
+    if stats["n_quantized"] != len(weights) or params_q["embed"] is not params["embed"]:
+        raise AssertionError(f"quantize_lm_params: {stats}")
+    max_steps = 0.0
+    for name, w in weights.items():
+        got = params_q[name] if name == "lm_head" else params_q["layer0"][name]
+        wq = weight_quantize(w, 4)
+        if not torch.equal(got, weight_dequantize(wq)):
+            raise AssertionError(f"quantize_lm_params {name}: not the round trip")
+        # floor quantization: within one step, plus float32 rounding
+        steps = ((got - w).abs() / wq.scale).max().item()
+        if steps > 1 + 1e-5:
+            raise AssertionError(f"quantize_lm_params {name}: {steps} steps off")
+        max_steps = max(max_steps, steps)
+    emit(phase="quantize_lm_params", model="codeqwen1.5-7b", nbits=4,
+         stats=stats, max_err_in_steps=max_steps, card=card)
+    return launches["wq_gemm"], packed
+
+
+def phase_wq_timing(torch, card, packed) -> dict:
+    """wq_gemm alone at the gate projection and lm_head, batch 1, 8 and
+    128, float32 x. A weight that would stay in L2 is timed in turns over
+    enough copies to exceed it: a decode step reads each layer's weight
+    once. Returns {(weight, M): (ms, plain_ms, bound_ms, bound_by,
+    library_ms)}."""
+    from repro_torch.kernels import ops, wqmm
+
+    gen = torch.Generator(device=DEVICE).manual_seed(8)
+    out = {}
+    for name, (wp, sc) in packed.items():
+        k, n = wp.shape[0], 2 * wp.shape[1]
+        w_bytes = wp.numel() + 4 * sc.numel()
+        copies = max(1, math.ceil(2 * L2_BYTES / w_bytes))
+        pool = [(wp, sc)] + [(wp.clone(), sc.clone()) for _ in range(copies - 1)]
+        w32 = wqmm.unpack_w4(wp, sc, 32)
+        w16 = w32.to(torch.bfloat16)
+        for m in WQ_BATCHES:
+            x = torch.randn((m, k), generator=gen, device=DEVICE)
+            x16 = x.to(torch.bfloat16)
+            turn = itertools.cycle(pool)
+            ms = graph_ms(torch, lambda: ops.wq_gemm(x, *next(turn)))
+            plain_ms = time_ms(torch, lambda: wqmm.wq_gemm_plain(x, wp, sc, group=32),
+                               reps=3)
+            library_ms = graph_ms(torch, lambda: torch.matmul(x, w32))
+            library_bf16_ms = graph_ms(torch, lambda: torch.matmul(x16, w16))
+            b_ms, b_by = roofline(4 * m * k + w_bytes + 4 * m * n, 2 * m * k * n)
+            out[(name, m)] = (ms, plain_ms, b_ms, b_by, library_ms)
+            emit(phase="kernel_timing", kernel="wq_gemm", weight=name,
+                 shape=[m, k, n], x_dtype="float32", group=32, ms=ms,
+                 plain_ms=plain_ms, library_ms=library_ms,
+                 library_bf16_ms=library_bf16_ms, bound_ms=b_ms, bound_by=b_by,
+                 weight_copies=copies, card=card)
+        del pool, w32, w16
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -818,13 +1051,17 @@ def main() -> int:
 
     max_err = phase_kernel_vs_plain(torch, card)
     errs = phase_new_kernels_vs_plain(torch, card)
+    errs["wq_gemm"] = phase_wq_gemm_vs_plain(torch, card)
     models, dbs, tiles, launches = phase_main_path(torch, card)
     api_launches = phase_tensor_api(torch, card, models, dbs)
+    api_launches["wq_gemm"], wq_packed = phase_weight_only(torch, card)
     kernel_ms, plain_ms, library_ms, bound_ms, bound_by = phase_timing(
         torch, card, models, dbs, tiles)
     timing = phase_new_kernel_timing(torch, card, models, dbs)
     phase_fig9a(torch, card, dbs)
     phase_profile(torch, card, models, dbs)
+    # the kernels line carries wq_gemm at the gate projection, batch 1
+    timing["wq_gemm"] = phase_wq_timing(torch, card, wq_packed)[("wg", 1)]
 
     rows = [dict(name="bitserial_gemm", launches=launches, max_abs_err=max_err,
                  ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,

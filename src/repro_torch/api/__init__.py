@@ -5,13 +5,15 @@
   register/use     — registry and scoped defaults:
                          with repro_torch.api.use("cuda", policy=pol): ...
   bitserial_mm, bitserial_mm_packed, bgemm, bitpack,
-  bitserial_fused  — the dispatch functions
-  repro_torch.api.nn — functional layers (qlinear, qgraph_conv)
+  bitserial_fused, wq_mm — the dispatch functions
+  repro_torch.api.nn — functional layers (qlinear, qgraph_conv, wq_linear)
 
 Every dispatch function takes optional ``backend=`` / ``policy=``, which
 beat the active context.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.api.backend import OPS, Backend, UnsupportedOpError
 from repro_torch.api.policy import DEFAULT_POLICY, ExecutionPolicy
@@ -25,7 +27,7 @@ __all__ = [
     "ExecutionPolicy", "DEFAULT_POLICY", "DEFAULT_BACKEND",
     "register", "get_backend", "list_backends", "use", "set_default",
     "current", "resolve", "bitserial_mm", "bitserial_mm_packed", "bgemm",
-    "bitpack", "bitserial_fused",
+    "bitpack", "bitserial_fused", "wq_mm",
 ]
 
 
@@ -72,6 +74,13 @@ def bitpack(x, scale, zero, *, nbits: int, backend=None, policy=None):
     be, pol = resolve("bitpack", backend=backend, policy=policy,
                       s=nbits, t=nbits)
     return be.bitpack(x, scale, zero, nbits=nbits, policy=pol)
+
+
+def wq_mm(x, wq, *, out_dtype=torch.bfloat16, backend=None, policy=None):
+    """Weight-only quantized matmul: x (..., K) float @ WeightQ (K, N)."""
+    be, pol = resolve("wq_mm", backend=backend, policy=policy,
+                      s=wq.nbits, t=wq.nbits)
+    return be.wq_mm(x, wq, policy=pol, out_dtype=out_dtype)
 
 
 def bitserial_fused(a_packed, b_packed, alpha, beta, *, out_bits: int,

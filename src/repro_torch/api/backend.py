@@ -7,6 +7,9 @@ layouts (``core.bitops.pack_a`` / ``pack_b``):
   bgemm           — (M,W) x (W,N) 1-bit packed -> int32 (M,N)
   bitpack         — (M,K) f32 -> quantize + pack -> (nbits, M, ceil(K/32))
   bitserial_fused — bitserial_mm with the §4.5 rescale+requantize epilogue
+  wq_mm           — x (..., K) float @ WeightQ (K, N), weight-only quantized,
+                    with the affine epilogue (a float product, as the
+                    reference's xla_dot computes it)
   bitserial_jump  — capability FLAG (no method): the engine consumes
                     precomputed compact zero-tile artifacts (``tiles=``)
                     and ``policy.jump``
@@ -14,8 +17,14 @@ layouts (``core.bitops.pack_a`` / ``pack_b``):
                     tagged ``(idx, counts, s_w, "sgt")`` word-column remap
 
 Dispatch strips ``tiles=`` for an engine without the flag: jumping
-changes the schedule, never the result. The reference's ``wq_mm`` joins
-the list with its kernel and the LM stack.
+changes the schedule, never the result.
+
+An engine that lacks an op raises ``UnsupportedOpError``: dispatch never
+falls back to another engine. That is a departure from the reference,
+whose registry serves ``wq_mm`` on its default ``pallas`` engine by falling
+back to ``xla_dot`` (``tests/test_api_dispatch.py``,
+``test_wq_mm_dispatch_and_fallback``). Here the ``cuda`` engine provides
+``wq_mm`` itself, and ``popcount`` raises for it.
 """
 from __future__ import annotations
 
@@ -25,7 +34,7 @@ from repro_torch.core import bitops
 
 __all__ = ["Backend", "UnsupportedOpError", "OPS"]
 
-OPS = ("bitserial_mm", "bgemm", "bitpack", "bitserial_fused",
+OPS = ("bitserial_mm", "bgemm", "bitpack", "bitserial_fused", "wq_mm",
        "bitserial_jump", "bitserial_sgt")
 
 
@@ -78,6 +87,10 @@ class Backend(abc.ABC):
                         out_bits: int, relu: bool, policy, tiles=None):
         """bitserial_mm + fused alpha*acc+beta -> (relu) -> requantize."""
         raise UnsupportedOpError(f"{self.name} does not provide bitserial_fused")
+
+    def wq_mm(self, x, wq, *, policy, out_dtype):
+        """x (..., K) float @ WeightQ (K, N) with affine epilogue."""
+        raise UnsupportedOpError(f"{self.name} does not provide wq_mm")
 
     def __repr__(self):
         caps = ",".join(sorted(self.capabilities))

@@ -9,6 +9,11 @@
               jumping; the default engine. On a CPU tensor each takes its
               plain version.
 
+torch_dot and cuda provide ``wq_mm`` with the same float matmul over the
+int8 ``WeightQ`` (the reference's xla_dot einsum): the reference serves it
+on its kernel engine by falling back to xla_dot, and the port never falls
+back. popcount lacks it and raises, as in the reference.
+
 All three return IDENTICAL int32 results for any (s, t) in 1..8; torch_dot
 and popcount take operands of up to 32 bits, as the reference's xla_dot
 and popcount do, and the cuda engine raises above 8 (its kernel shifts by
@@ -28,6 +33,15 @@ from repro_torch.kernels.bitserial import fused_epilogue
 __all__ = ["TorchDotBackend", "PopcountBackend", "CudaBackend"]
 
 _CORE_OPS = frozenset({"bitserial_mm", "bgemm", "bitpack", "bitserial_fused"})
+
+
+def _wq_mm(x, wq, out_dtype):
+    """x (..., K) @ WeightQ (K, N): y = (x @ q) * scale + rowsum(x) * zero,
+    float32 throughout, cast to ``out_dtype``."""
+    xf = x.to(torch.float32)
+    core = torch.matmul(xf, wq.data.to(torch.float32))
+    rowsum = torch.sum(xf, dim=-1, keepdim=True)
+    return (core * wq.scale + rowsum * wq.zero).to(out_dtype)
 
 
 def _int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -56,6 +70,7 @@ class _PlainTorchBackend(Backend):
 
 class TorchDotBackend(_PlainTorchBackend):
     name = "torch_dot"
+    capabilities = _CORE_OPS | {"wq_mm"}
 
     def bitserial_mm_vals(self, aq, bq, s, t, *, policy):
         # One wide product over the bit-masked values: plane i of
@@ -78,6 +93,9 @@ class TorchDotBackend(_PlainTorchBackend):
     def bgemm(self, a_packed, b_packed, *, policy):
         return self.bitserial_mm(a_packed[None], b_packed[None], policy=policy)
 
+    def wq_mm(self, x, wq, *, policy, out_dtype):
+        return _wq_mm(x, wq, out_dtype)
+
 
 class PopcountBackend(_PlainTorchBackend):
     name = "popcount"
@@ -91,7 +109,7 @@ class PopcountBackend(_PlainTorchBackend):
 
 class CudaBackend(Backend):
     name = "cuda"
-    capabilities = _CORE_OPS | {"bitserial_jump", "bitserial_sgt"}
+    capabilities = _CORE_OPS | {"wq_mm", "bitserial_jump", "bitserial_sgt"}
 
     def bitserial_mm(self, a_packed, b_packed, *, policy, tiles=None):
         if policy.reuse:
@@ -121,6 +139,11 @@ class CudaBackend(Backend):
         return kops.bitserial_fused(a_packed, b_packed, alpha, beta,
                                     out_bits=out_bits, relu=relu,
                                     policy=policy, tiles=tiles)
+
+    def wq_mm(self, x, wq, *, policy, out_dtype):
+        # a plain float product, as on torch_dot: no kernel serves the
+        # int8 WeightQ format (kernels/ops.wq_gemm takes pack_w4's nibbles)
+        return _wq_mm(x, wq, out_dtype)
 
 
 register(TorchDotBackend())

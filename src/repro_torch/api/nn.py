@@ -1,11 +1,13 @@
 """Functional quantized layers (the reference's ``repro.api.nn``, inference part).
 
-  as_quantized — normalize a layer input to (int values, QuantParams)
-  qlinear      — s-bit activations x t-bit weights -> float x @ w
-  qgraph_conv  — Â h aggregation: 1-bit adjacency x s-bit features
-                 integer GEMM + dequant epilogue (Algorithm 1)
+  as_quantized       — normalize a layer input to (int values, QuantParams)
+  qlinear            — s-bit activations x t-bit weights -> float x @ w
+  qgraph_conv        — Â h aggregation: 1-bit adjacency x s-bit features
+                       integer GEMM + dequant epilogue (Algorithm 1)
+  wq_linear          — float x @ weight-only-quantized W (+ bias)
+  quantize_lm_params — weight-only quantize an LM's large projections
 
-Both GEMMs dispatch through ``repro_torch.api``, so
+Every GEMM dispatches through ``repro_torch.api``, so
 ``with repro_torch.api.use("popcount"): ...`` switches the whole model.
 """
 from __future__ import annotations
@@ -16,7 +18,8 @@ from repro_torch import api
 from repro_torch.core.quantize import (QuantParams, affine_matmul_correction,
                                        calibrate, dequantize, quantize)
 
-__all__ = ["as_quantized", "qlinear", "qgraph_conv"]
+__all__ = ["as_quantized", "qlinear", "qgraph_conv", "wq_linear",
+           "quantize_lm_params"]
 
 
 def as_quantized(x, nbits: int) -> tuple[torch.Tensor, QuantParams]:
@@ -73,3 +76,46 @@ def qgraph_conv(adj_bin, hq, qph: QuantParams, inv_deg, *, backend=None,
     hf = hq.to(torch.float32) * qph.scale + qph.zero
     agg = cnt.to(torch.float32) * qph.scale + deg * qph.zero
     return (agg + hf) * inv_deg
+
+
+def wq_linear(x, wq, *, bias=None, out_dtype=torch.bfloat16, backend=None,
+              policy=None):
+    """x (..., K) float @ weight-only-quantized W (K, N) + optional bias."""
+    out = api.wq_mm(x, wq, out_dtype=out_dtype, backend=backend,
+                    policy=policy)
+    if bias is not None:
+        out = (out + bias).to(out_dtype)
+    return out
+
+
+def quantize_lm_params(params, nbits: int = 4, min_size: int = 4096,
+                       skip: tuple = ("embed",)):
+    """Weight-only-quantize every large 2-D projection in a nested dict of
+    tensors.
+
+    Returns ``(params_q, stats)``: params_q has each eligible leaf replaced
+    by its quantize->dequantize round trip (the W-nbits serving effect on a
+    stock forward pass), and stats reports the packed footprint:
+    {"n_quantized", "bytes_fp16", "bytes_packed", "ratio"}. A leaf's key is
+    its path spelled as ``jax.tree_util.keystr`` spells it (``['layer0']['wq']``),
+    so ``skip`` substrings pick the leaves they pick in the reference.
+    """
+    from repro_torch.core.qgemm import weight_dequantize, weight_quantize
+
+    stats = {"n_quantized": 0, "bytes_fp16": 0, "bytes_packed": 0}
+
+    def visit(key, leaf):
+        if isinstance(leaf, dict):
+            return {k: visit(f"{key}[{k!r}]", v) for k, v in leaf.items()}
+        if (leaf.ndim != 2 or leaf.numel() <= min_size
+                or any(s in key for s in skip)):
+            return leaf
+        wq = weight_quantize(leaf.to(torch.float32), nbits)
+        stats["n_quantized"] += 1
+        stats["bytes_fp16"] += leaf.numel() * 2
+        stats["bytes_packed"] += leaf.numel() * nbits // 8 + wq.scale.numel() * 4
+        return weight_dequantize(wq).to(leaf.dtype)
+
+    params_q = visit("", params)
+    stats["ratio"] = stats["bytes_fp16"] / max(stats["bytes_packed"], 1)
+    return params_q, stats

@@ -5,7 +5,8 @@ output with every leaf turned into a numpy array (``jax.tree.map(
 np.asarray, params)``) and returns the port's parameter dict, so that both
 packages compute the same function. ``bittensor_from_jax`` takes a
 reference BitTensor's fields (data as uint32, nbits, shape, pack_axis,
-scale, zero) and returns the port's ``BitTensor``. Neither needs JAX.
+scale, zero) and returns the port's ``BitTensor``; ``weightq_from_jax``
+does the same for a reference ``WeightQ``. None of them needs JAX.
 """
 from __future__ import annotations
 
@@ -13,10 +14,11 @@ import numpy as np
 import torch
 
 from repro_torch.core.bittensor import BitTensor
+from repro_torch.core.qgemm import WeightQ
 from repro_torch.core.quantize import QuantParams
 from repro_torch.device import resolve_device
 
-__all__ = ["params_from_jax", "bittensor_from_jax"]
+__all__ = ["params_from_jax", "bittensor_from_jax", "weightq_from_jax"]
 
 
 def params_from_jax(params_np: dict, device=None) -> dict:
@@ -44,3 +46,20 @@ def bittensor_from_jax(data, nbits: int, shape, pack_axis: int, scale=None,
                          torch.tensor(np.asarray(zero, np.float32), device=dev))
     return BitTensor(torch.tensor(words, device=dev), nbits, tuple(shape),
                      pack_axis, qp)
+
+
+def weightq_from_jax(data, scale, zero, nbits: int, packed=None,
+                     device=None) -> WeightQ:
+    """A reference WeightQ's fields -> the port's WeightQ on ``device``
+    (None means the card). ``data`` is int8, ``scale``/``zero`` float32,
+    ``packed`` the uint32 bit planes or None; the port keeps the planes'
+    bit patterns as int32."""
+    dev = resolve_device(device)
+    planes = None
+    if packed is not None:
+        words = np.ascontiguousarray(np.asarray(packed, dtype=np.uint32))
+        planes = torch.tensor(words.view(np.int32), device=dev)
+    return WeightQ(torch.tensor(np.asarray(data, np.int8), device=dev),
+                   torch.tensor(np.asarray(scale, np.float32), device=dev),
+                   torch.tensor(np.asarray(zero, np.float32), device=dev),
+                   nbits, planes)

@@ -8,8 +8,9 @@ place whole, so concurrent builds never load a half-written file. The
 output goes to ``build/repro_torch/`` at the repository root. Nothing is
 built at import: ``library()`` builds at the first launch.
 
-The flags never include ``--use_fast_math``: the fused epilogue and the
-bitpack quantizer do float arithmetic that must round as IEEE float32 does.
+The flags never include ``--use_fast_math``: the fused epilogue, the
+bitpack quantizer and the 4-bit dequantization do float arithmetic that
+must round as IEEE float32 does.
 
 ``LAUNCHES`` holds one count per kernel; each wrapper adds one where it
 launches its kernel, and nowhere else.
@@ -36,7 +37,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
 LAUNCHES = {"bitserial_gemm": 0, "bitserial_fused": 0, "bgemm": 0,
-            "bitpack": 0}
+            "bitpack": 0, "wq_gemm": 0}
 _lib = None
 
 
@@ -107,8 +108,11 @@ def library() -> ctypes.CDLL:
         lib.bgemm_launch.argtypes = gemm[:3] + gemm[5:] + [p]
         # (x, scale, zero, out, m, k, words, nbits, qmax, stream)
         lib.bitpack_launch.argtypes = [p, p, p, p, i, i, i, i, f, p]
+        # (x, w_packed, scales, out, m, n, k, group, block_m, block_n,
+        #  block_k, x_bf16, stream)
+        lib.wq_gemm_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
         for fn in (lib.bitserial_gemm_launch, lib.bitserial_fused_launch,
-                   lib.bgemm_launch, lib.bitpack_launch):
+                   lib.bgemm_launch, lib.bitpack_launch, lib.wq_gemm_launch):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib

@@ -17,8 +17,9 @@ from repro_torch.kernels import bgemm as _bgemm
 from repro_torch.kernels import bitpack as _bitpack
 from repro_torch.kernels import bitserial as _bitserial
 from repro_torch.kernels import sgt as _sgt
+from repro_torch.kernels import wqmm as _wqmm
 
-__all__ = ["bgemm", "bitserial_gemm", "bitserial_fused", "bitpack"]
+__all__ = ["bgemm", "bitserial_gemm", "bitserial_fused", "bitpack", "wq_gemm"]
 
 
 def _resolve(policy: ExecutionPolicy | None, **overrides):
@@ -211,3 +212,35 @@ def bitpack(
     words = -(-x.shape[1] // (kw["block_w"] * bitops.WORD)) * kw["block_w"]
     return _bitpack.bitpack(x.to(torch.float32).contiguous(), scale, zero,
                             nbits=nbits, words=words)
+
+
+def wq_gemm(
+    x: torch.Tensor,
+    w_packed: torch.Tensor,
+    scales: torch.Tensor,
+    *,
+    group: int = 32,
+    block_m: int = 8,
+    block_n: int = 256,
+    block_k: int = 128,
+) -> torch.Tensor:
+    """x (M,K) @ 4-bit packed W (K,N) -> float32 (M,N), dequantized on chip.
+
+    Tile sizes keep their own defaults (the packed-nibble layout wants a
+    wider N block than the bit-serial kernels); the reference reads only
+    ``interpret`` from its policy, so this wrapper takes none. K is padded
+    to ``block_k`` (zero weights, zero scales); the kernel masks the ragged
+    M and N edges, so the result is (M, N) as it comes.
+    """
+    k, n = x.shape[-1], 2 * w_packed.shape[-1]
+    if block_k % group or k % group:
+        raise ValueError(f"block_k={block_k} and K={k} must be multiples of "
+                         f"group={group}")
+    if tuple(scales.shape) != (k // group, n):
+        raise ValueError(f"scales must be {(k // group, n)}, got "
+                         f"{tuple(scales.shape)}")
+    xp = bitops.pad_to(x, 1, block_k).contiguous()
+    wp = bitops.pad_to(w_packed, 0, block_k).contiguous()
+    sp = bitops.pad_to(scales, 0, block_k // group).contiguous()
+    return _wqmm.wq_gemm(xp, wp, sp, group=group, block_m=block_m,
+                         block_n=block_n, block_k=block_k)

@@ -15,9 +15,11 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import api  # noqa: E402
 from repro_torch.api import DEFAULT_POLICY as POL  # noqa: E402
+from repro_torch.api import nn  # noqa: E402
 from repro_torch.core import bitops, bittensor as bt, zerotile  # noqa: E402
+from repro_torch.core.qgemm import WeightQ, weight_quantize  # noqa: E402
 from repro_torch.core.quantize import calibrate  # noqa: E402
-from repro_torch.kernels import bgemm, bitpack, bitserial, ops, sgt  # noqa: E402
+from repro_torch.kernels import bgemm, bitpack, bitserial, ops, sgt, wqmm  # noqa: E402
 from repro_torch.kernels._build import LAUNCHES  # noqa: E402
 from repro_torch.models import gnn  # noqa: E402
 
@@ -247,3 +249,110 @@ def test_tensor_api_on_card(cuda_device):
     assert LAUNCHES["bgemm"] == before["bgemm"] + 4
     torch.cuda.synchronize()
     assert torch.equal(reuse, no_reuse)
+
+
+def _within_float32_bound(got, x, w_deq):
+    """|got - x @ W| <= K * 2^-24 * (|x| @ |W|) around float64: the float32
+    dot-product error bound, which holds in any summation order."""
+    x64, w64 = x.double(), w_deq.double()
+    bound = x.shape[1] * 2.0 ** -24 * (x64.abs() @ w64.abs())
+    return bool(((got.double() - x64 @ w64).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 128, 256), (8, 256, 512), (5, 160, 64),
+                                   (13, 416, 300), (128, 1024, 1000)])
+@pytest.mark.parametrize("group", [32, 16])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("blocks", [(8, 256, 128), (1, 64, 32), (32, 128, 64)])
+def test_wq_gemm_kernel_matches_plain_on_card(cuda_device, m, k, n, group,
+                                              dtype, blocks):
+    rng = np.random.default_rng(m + k + n + group)
+    x = torch.as_tensor(rng.normal(size=(m, k)).astype(np.float32),
+                        device=cuda_device).to(getattr(torch, dtype))
+    w = torch.as_tensor(rng.normal(size=(k, n)).astype(np.float32),
+                        device=cuda_device)
+    wp, sc = wqmm.pack_w4(w, group)
+    bm, bn, bk = blocks
+    before = LAUNCHES["wq_gemm"]
+    got = ops.wq_gemm(x, wp, sc, group=group, block_m=bm, block_n=bn, block_k=bk)
+    assert LAUNCHES["wq_gemm"] == before + 1
+    plain = wqmm.wq_gemm_plain(x, wp, sc, group=group)
+    torch.cuda.synchronize()
+    assert got.shape == (m, n) and got.dtype == torch.float32
+    w_deq = wqmm.unpack_w4(wp, sc, group)
+    assert _within_float32_bound(got, x, w_deq)
+    assert _within_float32_bound(plain, x, w_deq)
+    # the CPU's plain version packs the same bytes
+    wp_cpu, sc_cpu = wqmm.pack_w4(w.cpu(), group)
+    assert torch.equal(wp.cpu(), wp_cpu) and torch.equal(sc.cpu(), sc_cpu)
+
+
+def test_wq_gemm_rows_below_the_tile_are_bit_equal(cuda_device):
+    """M below block_m runs a smaller row instance: the same sums, bit for bit."""
+    rng = np.random.default_rng(1)
+    x = torch.as_tensor(rng.normal(size=(3, 512)).astype(np.float32),
+                        device=cuda_device)
+    wp, sc = wqmm.pack_w4(torch.as_tensor(
+        rng.normal(size=(512, 640)).astype(np.float32), device=cuda_device))
+    outs = [ops.wq_gemm(x, wp, sc, block_m=bm) for bm in (4, 8, 32)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    assert torch.equal(outs[0][:1], ops.wq_gemm(x[:1], wp, sc, block_m=1))
+
+
+def test_wq_gemm_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    x = torch.zeros((2, 128), device=cuda_device)
+    wp = torch.zeros((128, 32), dtype=torch.uint8, device=cuda_device)
+    sc = torch.zeros((4, 64), device=cuda_device)
+    kw = dict(group=32, block_m=8, block_n=256, block_k=128)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        wqmm.wq_gemm(x.double(), wp, sc, **kw)
+    with pytest.raises(TypeError, match="uint8"):
+        wqmm.wq_gemm(x, wp.to(torch.int8), sc, **kw)
+    with pytest.raises(TypeError, match="float32"):
+        wqmm.wq_gemm(x, wp, sc.double(), **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        wqmm.wq_gemm(torch.zeros((128, 2), device=cuda_device).t(), wp, sc, **kw)
+    with pytest.raises(ValueError):
+        wqmm.wq_gemm(x, wp, sc.cpu(), **kw)
+    with pytest.raises(ValueError, match="block_m"):
+        wqmm.wq_gemm(x, wp, sc, **{**kw, "block_m": 3})
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.wq_gemm(torch.zeros((2, 512), device=cuda_device),
+                    torch.zeros((512, 32), dtype=torch.uint8, device=cuda_device),
+                    torch.zeros((16, 64), device=cuda_device),
+                    block_m=32, block_k=1024)
+    with pytest.raises(ValueError, match="scales"):
+        ops.wq_gemm(x, wp, sc[:3])
+    assert LAUNCHES["wq_gemm"] >= 0
+
+
+def test_wq_linear_on_card_is_a_float_product(cuda_device):
+    """The cuda engine serves wq_mm with a float matmul, launching no
+    kernel, and agrees with the port on the CPU within the float32 bound."""
+    rng = np.random.default_rng(2)
+    w = torch.as_tensor(rng.normal(size=(512, 96)).astype(np.float32),
+                        device=cuda_device)
+    x = torch.as_tensor(rng.normal(size=(8, 512)).astype(np.float32),
+                        device=cuda_device)
+    wq = weight_quantize(w, 4)
+    before = dict(LAUNCHES)
+    on_card = nn.wq_linear(x, wq, out_dtype=torch.float32)
+    assert LAUNCHES == before
+    wq_cpu = WeightQ(wq.data.cpu(), wq.scale.cpu(), wq.zero.cpu(), 4)
+    on_cpu = nn.wq_linear(x.cpu(), wq_cpu, out_dtype=torch.float32,
+                          backend="torch_dot")
+    # the float32 bound of (x @ q) * scale + rowsum(x) * zero around float64
+    x64, d64 = x.double(), wq.data.double()
+    s64, z64 = wq.scale.double(), wq.zero.double()
+    core, rowsum = x64 @ d64, x64.sum(-1, keepdim=True)
+    u, k = 2.0 ** -24, x.shape[1]
+    bound = (k * u * ((x64.abs() @ d64.abs()) * s64.abs()
+                      + x64.abs().sum(-1, keepdim=True) * z64.abs())
+             + 3 * u * ((core * s64).abs() + (rowsum * z64).abs()))
+    exact = core * s64 + rowsum * z64
+    torch.cuda.synchronize()
+    for y in (on_card, on_cpu.to(cuda_device)):
+        assert bool(((y.double() - exact).abs() <= bound).all())
+    with pytest.raises(api.UnsupportedOpError):
+        nn.wq_linear(x, wq, backend="popcount")
