@@ -18,14 +18,21 @@ without printing a result:
      wq_gemm, a float product, and its plain version are each held to the
      float32 dot-product error bound around a float64 product of the same
      dequantized weight, at the reference test's shapes and a ragged one,
-     x in float32 and bf16, at three tile sizes.
+     x in float32 and bf16, at three tile sizes. Then mode="mxu", the
+     tensor-core kernels bitserial_gemm_mxu (four schedules),
+     bitserial_fused_mxu and bgemm_mxu, each equal to its plain version
+     and to the 'vpu' kernel at plane pairs (1,1)..(8,8), patterns random,
+     zero and block-diagonal, and tiles (8,32,4), (1,32,1), (16,8,8) and
+     (32,32,9); and one-hot checks that pin the mma fragment layout.
   3. main path — ogbn-arxiv at full scale, partitioned into 1500 parts
      (Cluster-GCN's setting), batches of 20 parts; the first 8 batches
      are served through forward_qgtc for qgtc-gcn and qgtc-gin at 8, 4
      and 2 bits, with no jumping, compact tiles and sgt tiles. The kernel
      engine's logits must equal the plain engine's bit for bit, and the
      kernel must launch 6 times per GCN forward and 9 per GIN forward, and
-     no other kernel at all.
+     no other kernel at all. Then the same forwards at mode="mxu": logits
+     equal to the 'vpu' kernel's (so to the plain engine's), through
+     bitserial_gemm_mxu alone, with its launches counted apart.
   4. tensor API — the §5 BitTensor path at full width on batch 0 (2304
      nodes, 128 features) at the qgtc-gcn widths 128->16->16->40, at 8/4/2
      bits: to_bit equal to api.bitpack word for word; the chain bitmm2bit
@@ -33,7 +40,9 @@ without printing a result:
      the cuda and popcount engines; the adjacency product under reuse=True
      and reuse=False, equal, with 1 bitserial_gemm launch against s*t
      bgemm launches; one case against the port on the CPU. Every kernel's
-     launch count must be what the phase expects.
+     launch count must be what the phase expects. Then the chain and the
+     adjacency product at mode="mxu", equal to the 'vpu' results, through
+     bitserial_gemm_mxu, bitserial_fused_mxu and bgemm_mxu alone.
   5. weight only — codeqwen1.5-7b's decode projections at full width
      (pack_w4 on the card, x at batch 1, 8 and 128, float32 and bf16)
      through kernels.ops.wq_gemm, each within the float32 bound, one
@@ -42,16 +51,18 @@ without printing a result:
      the float32 bound of the affine product; quantize_lm_params over one
      layer, embed and lm_head.
   6. timing, fig7-style — per batch, CUDA events, median over repeats:
-     fp32_dense, fp32_csr, qgtc at 8/4/2 bits; each kernel alone at its
-     path shape (a CUDA graph of 50 calls) beside its plain version, its
+     fp32_dense, fp32_csr, qgtc at 8/4/2 bits in both modes; each kernel
+     alone at its path shape (a CUDA graph of 50 calls; the two modes of a
+     kernel in turns) beside its plain version, its
      bound, and one PyTorch call of the same function where there is one
      (a float32 torch.matmul on the unpacked values, exact: every sum stays
      below 2**24), as the library yardstick, which the port never calls.
   7. fig9a — the adjacency product with tile reuse (one bitserial_gemm)
      and without (one bgemm per plane pair), CUDA events, at 2/4/8 bits,
      for batch 0's adjacency and for the paper's all-ones A of its size.
-  8. profile — one qgtc forward per model under torch.profiler: host wall
-     time, device time of its kernels, and the device's idle share.
+  8. profile — one qgtc forward per model and mode under torch.profiler:
+     host wall time, device time of its kernels and of the bit-serial
+     kernel alone, and the device's idle share.
   9. wq_gemm timing — at the gate projection and lm_head, batch 1, 8 and
      128: ms (a CUDA graph of 50 calls over enough weight copies to exceed
      L2) beside its plain version, its bound, and float32 and bf16
@@ -97,7 +108,22 @@ KERNEL_SOURCES = {
     "bitpack": ("src/repro_torch/csrc/bitpack.cu",
                 "src/repro/kernels/bitpack.py:43"),
     "wq_gemm": ("src/repro_torch/csrc/wqmm.cu", "src/repro/kernels/wqmm.py:62"),
+    # mode="mxu" of the first three: the TPU kernels' mxu branch is
+    # src/repro/kernels/bgemm.py:53 (_tile_product), reached from these
+    "bitserial_gemm_mxu": ("src/repro_torch/csrc/bitserial_mma.cuh",
+                           "src/repro/kernels/bitserial.py:245"),
+    "bitserial_fused_mxu": ("src/repro_torch/csrc/bitserial_mma.cuh",
+                            "src/repro/kernels/bitserial.py:273"),
+    "bgemm_mxu": ("src/repro_torch/csrc/bitserial_mma.cuh",
+                  "src/repro/kernels/bgemm.py:112"),
 }
+MXU_KERNELS = ("bitserial_gemm_mxu", "bitserial_fused_mxu", "bgemm_mxu")
+# mode="mxu" checks: tiles (block_m, block_n, block_w), the default first,
+# down to one row and to one fragment, and a K tile of 9 words
+MXU_TILES = ((8, 32, 4), (1, 32, 1), (16, 8, 8), (32, 32, 9))
+MXU_EPILOGUES = ((8, True), (4, False), (2, True))
+# bit-serial GEMMs of one forward_qgtc: two per GCN layer, three per GIN layer
+PER_FORWARD = {"gcn": 6, "gin": 9}
 # wq_gemm: the reference test's (M, K, N) and a ragged one, group sizes,
 # and tile sizes (block_m, block_n, block_k) besides the default
 WQ_SHAPES = ((1, 128, 256), (8, 256, 512), (5, 160, 64), (13, 416, 300))
@@ -116,8 +142,12 @@ WQ_BATCHES = (1, 8, 128)
 L2_BYTES = 50e6  # the H100's L2: a timed weight must not stay in it
 
 
+_START = time.perf_counter()
+
+
 def emit(**kw):
-    print(json.dumps(kw), flush=True)
+    """One JSON line, with the seconds since the script started."""
+    print(json.dumps({**kw, "elapsed_s": time.perf_counter() - _START}), flush=True)
 
 
 def card_line() -> str:
@@ -174,7 +204,7 @@ def roofline(nbytes, ops) -> tuple[float, str]:
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def bound(a_packed, t, n, *, fused=False) -> tuple[float, str]:
+def bound(a_packed, t, n, *, fused=False, tensor_cores=False) -> tuple[float, str]:
     """Least time (ms) for the bit-serial GEMM on these inputs, and what
     bounds it.
 
@@ -183,14 +213,31 @@ def bound(a_packed, t, n, *, fused=False) -> tuple[float, str]:
     output column; a zero word adds nothing, whatever the schedule, so the
     work this data needs counts only the non-zero ones. The fused epilogue
     adds alpha and beta (4 bytes a row and a column) and six operations per
-    output (convert, multiply, add, max, floor, clip)."""
+    output (convert, multiply, add, max, floor, clip).
+
+    ``tensor_cores``: the mode="mxu" kernels run the AND and popcount on the
+    b1 tensor cores, whose rate NVIDIA's data sheet does not give; the bound
+    is then the bytes alone (the operations side, even at the CUDA cores'
+    67 T/s, is below the bytes at the GNN shapes, and far below at any
+    tensor-core rate)."""
     s, m, w = a_packed.shape
     nonzero_words = int((a_packed != 0).sum())
     nbytes = 4 * (s * m * w + t * w * n + m * n)
     ops = 2 * t * n * nonzero_words
     if fused:
         nbytes, ops = nbytes + 4 * (m + n), ops + 6 * m * n
-    return roofline(nbytes, ops)
+    return roofline(nbytes, 0 if tensor_cores else ops)
+
+
+def turns_ms(torch, fns: dict, *, reps=50) -> dict:
+    """``graph_ms`` of two versions of one function in turns (a, b, b, a),
+    each the mean of its two turns: the way two versions are compared on one
+    card."""
+    a, b = fns
+    times = {a: [], b: []}
+    for name in (a, b, b, a):
+        times[name].append(graph_ms(torch, fns[name], reps=reps))
+    return {name: sum(v) / len(v) for name, v in times.items()}
 
 
 def _operand(torch, gen, m, k, bits, pattern):
@@ -367,6 +414,128 @@ def phase_new_kernels_vs_plain(torch, card):
     return errs
 
 
+def _word(bit):
+    """A 32-bit word with one bit set, as the int32 bit pattern."""
+    return (1 << bit) - (1 << 32) if bit == 31 else 1 << bit
+
+
+def _one_hot_checks(torch, ops, pol) -> int:
+    """mode="mxu" against the fragment layout of mma m16n8k256 .b1: one set
+    bit of A at every (row < 16, word < 8, bit 0 or 31) against a B of all
+    ones must light exactly that row, through bgemm and bitserial_gemm; one
+    set bit of B at every (word < 8, column < 8) against an A of all ones
+    exactly that column. Returns the number of checks."""
+    ones_a = torch.full((16, 8), -1, dtype=torch.int32, device=DEVICE)
+    ones_b = torch.full((8, 8), -1, dtype=torch.int32, device=DEVICE)
+    checks = 0
+    for row, word, bit in itertools.product(range(16), range(8), (0, 31)):
+        a = torch.zeros((16, 8), dtype=torch.int32)
+        a[row, word] = _word(bit)
+        a = a.to(DEVICE)
+        want = torch.zeros((16, 8), dtype=torch.int32, device=DEVICE)
+        want[row] = 1
+        col = row % 8
+        b = torch.zeros((8, 8), dtype=torch.int32)
+        b[word, col] = _word(bit)
+        want_b = torch.zeros((16, 8), dtype=torch.int32, device=DEVICE)
+        want_b[:, col] = 1
+        for got, exp, what in (
+                (ops.bgemm(a, ones_b, policy=pol), want, "A, bgemm"),
+                (ops.bitserial_gemm(a[None], ones_b[None], policy=pol), want,
+                 "A, bitserial_gemm"),
+                (ops.bgemm(ones_a, b.to(DEVICE), policy=pol), want_b, "B, bgemm")):
+            _max_err(torch, got, exp, f"one-hot {what} row={row} word={word} "
+                                      f"bit={bit} tile={pol.block_m, pol.block_n}")
+            checks += 1
+    return checks
+
+
+def phase_mxu_vs_plain(torch, card):
+    """The mode="mxu" kernels (bitserial_gemm in the four schedules,
+    bitserial_fused, bgemm) against their plain versions and against the
+    'vpu' kernels on the same CUDA tensors, at every MXU_TILES tile; then
+    the one-hot fragment checks. Returns {kernel: max_abs_err}."""
+    from repro_torch import api
+    from repro_torch.core import bitops
+    from repro_torch.kernels import bgemm, bitserial, ops
+
+    gen = torch.Generator().manual_seed(9)
+    errs = dict.fromkeys(MXU_KERNELS, 0)
+    checks = dict.fromkeys(MXU_KERNELS, 0)
+    gemm_cases = [(shape, st) for shape in RAGGED for st in ST_PAIRS]
+    gemm_cases += [((2048, 2048, 16), (1, 8)), ((2048, 128, 64), (8, 8))]
+    fused_cases = [(shape, st) for shape in RAGGED for st in ST_PAIRS]
+    one_bit = list(RAGGED) + [(2048, 2048, 16), (2304, 2304, 128)]
+    cases = ([("gemm", c) for c in gemm_cases] + [("fused", c) for c in fused_cases]
+             + [("bgemm", (shape, (1, 1))) for shape in one_bit])
+    for kind, ((m, k, n), (s, t)) in cases:
+        for pattern in ("random", "zero", "block_diag"):
+            a = _operand(torch, gen, m, k, s, pattern)
+            b = torch.randint(0, 1 << t, (k, n), generator=gen, dtype=torch.int32)
+            top = max(int((a.double() @ b.double()).max()), 1)
+            ap, bp = bitops.pack_a(a, s).to(DEVICE), bitops.pack_b(b, t).to(DEVICE)
+            for bm, bn, bw in MXU_TILES:
+                pol = api.ExecutionPolicy(block_m=bm, block_n=bn, block_w=bw,
+                                          mode="mxu")
+                vpu = pol.replace(mode="vpu")
+                a_pad = bitops.pad_to(bitops.pad_to(ap, 1, bm), 2, bw)
+                b_pad = bitops.pad_to(bp, 1, bw)
+                grid = dict(block_m=bm, block_w=bw)
+                for name, (wrap_kw, plain_kw) in _schedules(ap, a_pad, pol).items():
+                    what = (f"{kind} mxu {(m, k, n)} s={s} t={t} {pattern} "
+                            f"{name} tile={(bm, bn, bw)}")
+                    if kind == "gemm":
+                        got = ops.bitserial_gemm(ap, bp, policy=pol, **wrap_kw)
+                        ref = ops.bitserial_gemm(ap, bp, policy=vpu, **wrap_kw)
+                        plain = bitserial.bitserial_gemm_plain(
+                            a_pad, b_pad, **grid, **plain_kw)[:m]
+                        key = "bitserial_gemm_mxu"
+                        pairs = [(None, None)]
+                    elif kind == "bgemm":
+                        got = ops.bgemm(ap[0], bp[0], policy=pol, **wrap_kw)
+                        ref = ops.bgemm(ap[0], bp[0], policy=vpu, **wrap_kw)
+                        plain = bgemm.bgemm_plain(a_pad[0], b_pad[0], **grid,
+                                                  **plain_kw)[:m]
+                        key = "bgemm_mxu"
+                        pairs = [(None, None)]
+                    else:
+                        key = "bitserial_fused_mxu"
+                        pairs = MXU_EPILOGUES
+                    for out_bits, relu in pairs:
+                        check = what
+                        if kind == "fused":
+                            alpha = (torch.rand((m, 1), generator=gen) * 1.5
+                                     * (1 << out_bits) / top).to(DEVICE)
+                            beta = ((torch.rand((1, n), generator=gen) - 0.5)
+                                    * (1 << out_bits)).to(DEVICE)
+                            epi = dict(out_bits=out_bits, relu=relu)
+                            got = ops.bitserial_fused(ap, bp, alpha, beta, policy=pol,
+                                                      **epi, **wrap_kw)
+                            ref = ops.bitserial_fused(ap, bp, alpha, beta, policy=vpu,
+                                                      **epi, **wrap_kw)
+                            plain = bitserial.bitserial_fused_plain(
+                                a_pad, b_pad, bitops.pad_to(alpha, 0, bm), beta,
+                                **epi, **grid, **plain_kw)[:m]
+                            check += f" out_bits={out_bits} relu={relu}"
+                        err = _max_err(torch, got, plain, check)
+                        if not torch.equal(got, ref):
+                            raise AssertionError(f"mxu kernel != vpu kernel: {check}")
+                        errs[key] = max(errs[key], err)
+                        checks[key] += 1
+    one_hot = sum(_one_hot_checks(torch, ops, api.ExecutionPolicy(
+        block_m=bm, block_n=bn, block_w=bw, mode="mxu"))
+        for bm, bn, bw in ((16, 8, 8), (8, 32, 4)))
+    emit(phase="kernel_vs_plain", mode="mxu", checks=checks,
+         one_hot_checks=one_hot, schedules=list(SCHEDULES),
+         st_pairs=[list(p) for p in ST_PAIRS], tiles=[list(x) for x in MXU_TILES],
+         epilogues=[list(e) for e in MXU_EPILOGUES],
+         gemm_shapes=[[*shape, *st] for shape, st in gemm_cases],
+         bgemm_shapes=[list(x) for x in one_bit],
+         patterns=["random", "zero", "block_diag"],
+         equal_plain=True, equal_vpu_kernel=True, max_abs_err=errs, card=card)
+    return errs
+
+
 def phase_main_path(torch, card):
     from repro_torch.api import DEFAULT_POLICY as pol
     from repro_torch.configs.qgtc_gnn import GNN_CONFIGS
@@ -416,13 +585,12 @@ def phase_main_path(torch, card):
             per_bits[bits] = (cfg_b, gnn.quantize_params(params, cfg_b))
         models[name] = (cfg, params, per_bits)
 
-    per_forward = {"gcn": 6, "gin": 9}
     bitserial.reset_launches()
-    expected = 0
+    expected, logits = 0, {}
     for name, (cfg, _, per_bits) in models.items():
         for bits, (cfg_b, qp) in per_bits.items():
             for jump in ("none", "compact", "sgt"):
-                for db, tl in zip(dbs, tiles):
+                for batch, (db, tl) in enumerate(zip(dbs, tiles)):
                     before = bitserial.LAUNCHES["bitserial_gemm"]
                     got = gnn.forward_qgtc(qp, db["adj"], db["x"], db["inv_deg"],
                                            cfg_b, backend="cuda", tiles=tl[jump])
@@ -430,10 +598,10 @@ def phase_main_path(torch, card):
                     want = gnn.forward_qgtc(qp, db["adj"], db["x"], db["inv_deg"],
                                             cfg_b, backend="popcount",
                                             tiles=tl[jump])
-                    if launched != per_forward[cfg.model]:
+                    if launched != PER_FORWARD[cfg.model]:
                         raise AssertionError(
                             f"{name} launched the kernel {launched} times, "
-                            f"expected {per_forward[cfg.model]}")
+                            f"expected {PER_FORWARD[cfg.model]}")
                     if got.shape != (db["adj"].shape[0], cfg.n_classes) or \
                             not bool(torch.isfinite(got).all()):
                         raise AssertionError(f"{name} logits: bad shape or values")
@@ -442,9 +610,10 @@ def phase_main_path(torch, card):
                             f"{name} {bits}b jump={jump}: kernel engine logits "
                             f"differ from the plain engine's")
                     expected += launched
+                    logits[name, bits, jump, batch] = got
                 emit(phase="main_path", model=name, bits=bits, jump=jump,
                      batches=len(dbs), logits_equal_plain=True,
-                     launches_per_forward=per_forward[cfg.model])
+                     launches_per_forward=PER_FORWARD[cfg.model])
     launches = bitserial.LAUNCHES["bitserial_gemm"]
     if launches == 0 or launches != expected:
         raise AssertionError(f"kernel launches on the main path: {launches}, "
@@ -482,12 +651,49 @@ def phase_main_path(torch, card):
                                  f"{fp_diff}")
         emit(phase="reference", model=name, qgtc8_card_vs_cpu_max_abs=diff,
              fp32_dense_vs_csr_max_abs=fp_diff, card=card)
-    return models, dbs, tiles, launches
+    return models, dbs, tiles, launches, logits
 
 
-def _chain(bt, api, x, ws, qps, bits, *, backend, fused):
+def phase_main_path_mxu(torch, card, models, dbs, tiles, logits):
+    """The main path again at mode="mxu": the same forwards, batches, bits
+    and jumps through the tensor-core kernel. The logits must equal the
+    'vpu' kernel's of phase 3, which equal the plain engine's; the phase
+    launches bitserial_gemm_mxu and no other kernel. Returns its launches."""
+    from repro_torch import api
+    from repro_torch.kernels import bitserial
+    from repro_torch.models import gnn
+
+    mxu = api.ExecutionPolicy(mode="mxu")
+    bitserial.reset_launches()
+    expected = 0
+    for name, (cfg, _, per_bits) in models.items():
+        for bits, (cfg_b, qp) in per_bits.items():
+            for jump in ("none", "compact", "sgt"):
+                for batch, (db, tl) in enumerate(zip(dbs, tiles)):
+                    got = gnn.forward_qgtc(qp, db["adj"], db["x"], db["inv_deg"],
+                                           cfg_b, backend="cuda", policy=mxu,
+                                           tiles=tl[jump])
+                    if not torch.equal(got, logits[name, bits, jump, batch]):
+                        raise AssertionError(
+                            f"{name} {bits}b jump={jump} batch {batch}: mxu "
+                            f"logits differ from the vpu kernel's")
+                    expected += PER_FORWARD[cfg.model]
+                emit(phase="main_path", mode="mxu", model=name, bits=bits,
+                     jump=jump, batches=len(dbs), logits_equal_vpu_and_plain=True,
+                     launches_per_forward=PER_FORWARD[cfg.model])
+    launches = dict(bitserial.LAUNCHES)
+    others = {k: v for k, v in launches.items() if k != "bitserial_gemm_mxu" and v}
+    if launches["bitserial_gemm_mxu"] != expected or expected == 0 or others:
+        raise AssertionError(f"mxu main path launches {launches}, expected "
+                             f"{expected} of bitserial_gemm_mxu alone")
+    emit(phase="launches", mode="mxu", kernel="bitserial_gemm_mxu",
+         launches=expected, forwards=len(logits))
+    return launches["bitserial_gemm_mxu"]
+
+
+def _chain(bt, api, x, ws, qps, bits, *, backend, fused, mode="vpu"):
     """The Tensor API's three layers: bitmm2bit -> bitmm2bit -> bitmm2int."""
-    pol = api.ExecutionPolicy(fused_requantize=fused)
+    pol = api.ExecutionPolicy(fused_requantize=fused, mode=mode)
     for w, qp in zip(ws[:-1], qps):
         x = bt.bitmm2bit(x, w, bits, qp, backend=backend, policy=pol)
     return bt.bitmm2int(x, ws[-1], backend=backend, policy=pol)
@@ -495,7 +701,8 @@ def _chain(bt, api, x, ws, qps, bits, *, backend, fused):
 
 def phase_tensor_api(torch, card, models, dbs):
     """The §5 BitTensor path at full width on batch 0, at the qgtc-gcn
-    widths. Returns the launches of every kernel in the phase."""
+    widths. Returns the launches of every kernel in the phase, and per bits
+    the operands and the results, which the mxu phase is held to."""
     from repro_torch import api
     from repro_torch.core import bittensor as bt
     from repro_torch.kernels import bitserial
@@ -507,6 +714,7 @@ def phase_tensor_api(torch, card, models, dbs):
     ta = bt.to_bit(adj, 1, pack_axis=1)
     expected = dict.fromkeys(bitserial.LAUNCHES, 0)
     first = None  # (operands, fused logits on the card) at BITS[0]
+    kept = {}
     bitserial.reset_launches()
     for bits in BITS:
         tx = bt.to_bit(x, bits, pack_axis=1)
@@ -554,6 +762,7 @@ def phase_tensor_api(torch, card, models, dbs):
         if not torch.equal(reuse, no_reuse) or not torch.equal(
                 reuse, bt.bitmm2int(ta, th, backend="popcount")):
             raise AssertionError(f"{bits}b adjacency: reuse=False != reuse=True")
+        kept[bits] = ((tx, tws, qps, ta, th), chains, reuse)
         level_diff = (chains[True] - chains[False]).abs().max().item()
         emit(phase="tensor_api", bits=bits, nodes=x.shape[0],
              widths=[x.shape[1]] + [w.shape[1] for w in weights],
@@ -582,14 +791,59 @@ def phase_tensor_api(torch, card, models, dbs):
         raise AssertionError("tensor API: card != CPU")
     emit(phase="tensor_api_launches", launches=launches, expected=expected,
          card_equals_cpu_fused=BITS[0], card=card)
+    return launches, kept
+
+
+def phase_tensor_api_mxu(torch, card, kept):
+    """The Tensor API's chain at mode="mxu" on the operands of phase 4, with
+    fused_requantize off and on, and the adjacency product with reuse=True
+    and reuse=False: each equal to the 'vpu' result of phase 4, through the
+    mxu kernels alone. Returns the phase's launches."""
+    from repro_torch import api
+    from repro_torch.core import bittensor as bt
+    from repro_torch.kernels import bitserial
+
+    expected = dict.fromkeys(bitserial.LAUNCHES, 0)
+    bitserial.reset_launches()
+    for bits, ((tx, tws, qps, ta, th), chains, reuse) in kept.items():
+        for fused in (False, True):
+            got = _chain(bt, api, tx, tws, qps, bits, backend="cuda", fused=fused,
+                         mode="mxu")
+            if fused:
+                expected["bitserial_fused_mxu"] += 2
+                expected["bitserial_gemm_mxu"] += 1
+            else:
+                expected["bitserial_gemm_mxu"] += 3
+            if not torch.equal(got, chains[fused]):
+                raise AssertionError(f"{bits}b fused={fused}: mxu chain != vpu chain")
+        mxu = api.ExecutionPolicy(mode="mxu")
+        got_reuse = bt.bitmm2int(ta, th, policy=mxu)
+        got_no_reuse = bt.bitmm2int(ta, th, policy=mxu.replace(reuse=False))
+        expected["bitserial_gemm_mxu"] += 1
+        expected["bgemm_mxu"] += bits
+        if not (torch.equal(got_reuse, reuse) and torch.equal(got_no_reuse, reuse)):
+            raise AssertionError(f"{bits}b adjacency at mxu != vpu")
+        emit(phase="tensor_api", mode="mxu", bits=bits, chain_equals_vpu=True,
+             fused_chain_equals_vpu=True, reuse_and_no_reuse_equal_vpu=True,
+             card=card)
+    launches = dict(bitserial.LAUNCHES)
+    if launches != expected or not all(launches[k] for k in MXU_KERNELS):
+        raise AssertionError(f"tensor API mxu launches {launches}, expected {expected}")
+    emit(phase="tensor_api_launches", mode="mxu", launches=launches,
+         expected=expected, card=card)
     return launches
 
 
 def phase_timing(torch, card, models, dbs, tiles):
+    """fig7 per batch, and bitserial_gemm alone at the adjacency GEMM in both
+    modes, 'vpu' and 'mxu' timed in turns. Returns {kernel: (ms, plain_ms,
+    bound_ms, bound_by, library_ms)} for bitserial_gemm and its mxu twin."""
     from repro_torch.api import DEFAULT_POLICY as pol
     from repro_torch.core import bitops, zerotile
     from repro_torch.kernels import bitserial, ops
     from repro_torch.models import gnn
+
+    mxu = pol.replace(mode="mxu")
 
     for name, (cfg, params, per_bits) in models.items():
         runs = {
@@ -603,6 +857,10 @@ def phase_timing(torch, card, models, dbs, tiles):
             runs[f"qgtc{bits}"] = (
                 lambda db, cfg_b=cfg_b, qp=qp: gnn.forward_qgtc(
                     qp, db["adj"], db["x"], db["inv_deg"], cfg_b))
+        for bits, (cfg_b, qp) in per_bits.items():
+            runs[f"qgtc{bits}_mxu"] = (
+                lambda db, cfg_b=cfg_b, qp=qp: gnn.forward_qgtc(
+                    qp, db["adj"], db["x"], db["inv_deg"], cfg_b, policy=mxu))
         for path, fn in runs.items():
             per_batch = [time_ms(torch, lambda db=db: fn(db)) for db in dbs]
             emit(phase="fig7", model=name, path=path, unit="ms",
@@ -619,7 +877,10 @@ def phase_timing(torch, card, models, dbs, tiles):
     ap, bp = bitops.pack_a(db["adj"], 1), bitops.pack_b(values, 8)
     s, w, t = 1, ap.shape[2], 8
     a_f, v_f = db["adj"].float(), values.float()
-    kernel_ms = graph_ms(torch, lambda: ops.bitserial_gemm(ap, bp))
+    both = turns_ms(torch, {
+        "vpu": lambda: ops.bitserial_gemm(ap, bp),
+        "mxu": lambda: ops.bitserial_gemm(ap, bp, policy=mxu)})
+    kernel_ms = both["vpu"]
     plain_ms = time_ms(torch, lambda: bitserial.bitserial_gemm_plain(
         ap, bp, block_m=pol.block_m, block_w=pol.block_w), reps=3)
     library_ms = graph_ms(torch, lambda: torch.matmul(a_f, v_f))
@@ -630,6 +891,13 @@ def phase_timing(torch, card, models, dbs, tiles):
     emit(phase="kernel_timing", kernel="bitserial_gemm", schedule="dense",
          shape=[s, m, w, t, n], ms=kernel_ms, plain_ms=plain_ms,
          library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, card=card)
+    mxu_bound = bound(ap, t, n, tensor_cores=True)
+    out = {"bitserial_gemm": (kernel_ms, plain_ms, bound_ms, bound_by, library_ms),
+           "bitserial_gemm_mxu": (both["mxu"], plain_ms, *mxu_bound, library_ms)}
+    emit(phase="kernel_timing", kernel="bitserial_gemm_mxu", schedule="dense",
+         shape=[s, m, w, t, n], ms=both["mxu"], vpu_ms_in_turns=kernel_ms,
+         plain_ms=plain_ms, library_ms=library_ms, bound_ms=mxu_bound[0],
+         bound_by=mxu_bound[1], card=card)
     # the other schedules compute the same function: the same bound and the
     # same library yardstick; mask takes a precomputed occupancy map
     occ = zerotile.tile_occupancy_planes(
@@ -638,30 +906,40 @@ def phase_timing(torch, card, models, dbs, tiles):
     jump_kw = {"mask": {"occupancy": occ}, "compact": {"tiles": tl["compact"]},
                "sgt": {"tiles": tl["sgt"]}}
     for sched, kw in jump_kw.items():
-        ms = graph_ms(torch, lambda kw=kw: ops.bitserial_gemm(ap, bp, **kw))
+        ms = turns_ms(torch, {
+            "vpu": lambda kw=kw: ops.bitserial_gemm(ap, bp, **kw),
+            "mxu": lambda kw=kw: ops.bitserial_gemm(ap, bp, policy=mxu, **kw)})
         emit(phase="kernel_timing", kernel="bitserial_gemm", schedule=sched,
-             shape=[s, m, w, t, n], ms=ms, library_ms=library_ms,
+             shape=[s, m, w, t, n], ms=ms["vpu"], library_ms=library_ms,
              bound_ms=bound_ms, bound_by=bound_by, card=card)
+        emit(phase="kernel_timing", kernel="bitserial_gemm_mxu", schedule=sched,
+             shape=[s, m, w, t, n], ms=ms["mxu"], library_ms=library_ms,
+             bound_ms=mxu_bound[0], bound_by=mxu_bound[1], card=card)
     # and at GIN's widest feature GEMM: 8-bit (M, 128) x 8-bit (128, 64)
     gen = torch.Generator().manual_seed(3)
     xq = torch.randint(0, 256, (m, 128), generator=gen, dtype=torch.int32)
     wq = torch.randint(0, 256, (128, 64), generator=gen, dtype=torch.int32)
     xp, wp = bitops.pack_a(xq, 8).to(DEVICE), bitops.pack_b(wq, 8).to(DEVICE)
-    ms = graph_ms(torch, lambda: ops.bitserial_gemm(xp, wp))
+    ms = turns_ms(torch, {
+        "vpu": lambda: ops.bitserial_gemm(xp, wp),
+        "mxu": lambda: ops.bitserial_gemm(xp, wp, policy=mxu)})
     ms_plain = time_ms(torch, lambda: bitserial.bitserial_gemm_plain(
         xp, wp, block_m=pol.block_m, block_w=pol.block_w), reps=3)
     x_f, w_f = xq.double().to(DEVICE), wq.double().to(DEVICE)
     ms_lib = graph_ms(torch, lambda: torch.matmul(x_f, w_f))
-    b_ms, b_by = bound(xp, 8, 64)
-    emit(phase="kernel_timing", kernel="bitserial_gemm", schedule="dense",
-         shape=list(xp.shape) + [8, 64], ms=ms, plain_ms=ms_plain,
-         library_ms_float64=ms_lib, bound_ms=b_ms, bound_by=b_by, card=card)
-    return kernel_ms, plain_ms, library_ms, bound_ms, bound_by
+    for name, mode_ms, (b_ms, b_by) in (
+            ("bitserial_gemm", ms["vpu"], bound(xp, 8, 64)),
+            ("bitserial_gemm_mxu", ms["mxu"], bound(xp, 8, 64, tensor_cores=True))):
+        emit(phase="kernel_timing", kernel=name, schedule="dense",
+             shape=list(xp.shape) + [8, 64], ms=mode_ms, plain_ms=ms_plain,
+             library_ms_float64=ms_lib, bound_ms=b_ms, bound_by=b_by, card=card)
+    return out
 
 
 def phase_new_kernel_timing(torch, card, models, dbs):
-    """Each new kernel alone at its Tensor API shape on batch 0. Returns
-    {kernel: (ms, plain_ms, bound_ms, bound_by, library_ms)}."""
+    """Each new kernel alone at its Tensor API shape on batch 0; the fused
+    and 1-bit kernels in both modes, timed in turns. Returns {kernel: (ms,
+    plain_ms, bound_ms, bound_by, library_ms)}."""
     from repro_torch.api import DEFAULT_POLICY as pol
     from repro_torch.core import bitops, bittensor as bt
     from repro_torch.core.quantize import calibrate
@@ -684,26 +962,29 @@ def phase_new_kernel_timing(torch, card, models, dbs):
     b_pad = bitops.pad_to(bp, 1, pol.block_w)
     al = bitops.pad_to(alpha, 0, pol.block_m)
 
-    def fused():
-        return ops.bitserial_fused(ap, bp, alpha, beta, out_bits=8, relu=False)
+    def fused(policy=pol):
+        return ops.bitserial_fused(ap, bp, alpha, beta, out_bits=8, relu=False,
+                                   policy=policy)
 
     def unfused():
         return bitserial.fused_epilogue(ops.bitserial_gemm(ap, bp), alpha, beta,
                                         8, False)
 
-    if not torch.equal(fused(), unfused()):
+    mxu = pol.replace(mode="mxu")
+    if not torch.equal(fused(), unfused()) or not torch.equal(fused(mxu), fused()):
         raise AssertionError("fused kernel != bitserial_gemm + torch epilogue")
-    ms = graph_ms(torch, fused)
+    ms = turns_ms(torch, {"vpu": fused, "mxu": lambda: fused(mxu)})
     unfused_ms = graph_ms(torch, unfused)
     plain_ms = time_ms(torch, lambda: bitserial.bitserial_fused_plain(
         a_pad, b_pad, al, beta, out_bits=8, relu=False, block_m=pol.block_m,
         block_w=pol.block_w), reps=3)
-    b_ms, b_by = bound(ap, 8, n, fused=True)
-    out["bitserial_fused"] = (ms, plain_ms, b_ms, b_by, None)
-    emit(phase="kernel_timing", kernel="bitserial_fused", schedule="dense",
-         shape=list(ap.shape) + [8, n], ms=ms, plain_ms=plain_ms,
-         unfused_ms=unfused_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by,
-         card=card)
+    for name, mode in (("bitserial_fused", "vpu"), ("bitserial_fused_mxu", "mxu")):
+        b_ms, b_by = bound(ap, 8, n, fused=True, tensor_cores=mode == "mxu")
+        out[name] = (ms[mode], plain_ms, b_ms, b_by, None)
+        emit(phase="kernel_timing", kernel=name, schedule="dense",
+             shape=list(ap.shape) + [8, n], ms=ms[mode], plain_ms=plain_ms,
+             unfused_ms=unfused_ms, library_ms=None, bound_ms=b_ms,
+             bound_by=b_by, card=card)
 
     # bgemm at one plane pair of the adjacency product: the 1-bit
     # (2304, 2304) adjacency x the top plane of the 8-bit features
@@ -711,17 +992,22 @@ def phase_new_kernel_timing(torch, card, models, dbs):
     plane = bt.to_bit(x, 8, pack_axis=0).data[7]
     plane_vals = bitops.unpack_along_axis(plane, dim=0, size=adj.shape[1])
     a_f, p_f = adj.float(), plane_vals.float()
-    if not torch.equal(torch.matmul(a_f, p_f).to(torch.int32), ops.bgemm(a1, plane)):
+    lib_out = torch.matmul(a_f, p_f).to(torch.int32)
+    if not (torch.equal(lib_out, ops.bgemm(a1, plane)) and
+            torch.equal(lib_out, ops.bgemm(a1, plane, policy=mxu))):
         raise AssertionError("bgemm != float32 matmul of the 0/1 values")
-    ms = graph_ms(torch, lambda: ops.bgemm(a1, plane))
+    ms = turns_ms(torch, {"vpu": lambda: ops.bgemm(a1, plane),
+                          "mxu": lambda: ops.bgemm(a1, plane, policy=mxu)})
     plain_ms = time_ms(torch, lambda: bgemm.bgemm_plain(
         a1, plane, block_m=pol.block_m, block_w=pol.block_w), reps=3)
     library_ms = graph_ms(torch, lambda: torch.matmul(a_f, p_f))
-    b_ms, b_by = bound(a1[None], 1, plane.shape[1])
-    out["bgemm"] = (ms, plain_ms, b_ms, b_by, library_ms)
-    emit(phase="kernel_timing", kernel="bgemm", schedule="dense",
-         shape=list(a1.shape) + [plane.shape[1]], ms=ms, plain_ms=plain_ms,
-         library_ms=library_ms, bound_ms=b_ms, bound_by=b_by, card=card)
+    for name, mode in (("bgemm", "vpu"), ("bgemm_mxu", "mxu")):
+        b_ms, b_by = bound(a1[None], 1, plane.shape[1], tensor_cores=mode == "mxu")
+        out[name] = (ms[mode], plain_ms, b_ms, b_by, library_ms)
+        emit(phase="kernel_timing", kernel=name, schedule="dense",
+             shape=list(a1.shape) + [plane.shape[1]], ms=ms[mode],
+             plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+             bound_by=b_by, card=card)
 
     # bitpack of the features at 8 bits, as to_bit quantizes them
     scale, zero = tx.qp.scale, tx.qp.zero
@@ -790,18 +1076,25 @@ def phase_fig9a(torch, card, dbs):
 def phase_profile(torch, card, models, dbs, reps=5):
     """Where one qgtc forward's time goes: host wall time per forward, the
     device time of the kernels it launches (torch.profiler), and the device's
-    idle share."""
+    idle share; in both compute modes. ``gemm_kernel_ms`` is the device time
+    of the bit-serial kernel alone (bitserial_tile_kernel at 'vpu',
+    bitserial_mma_kernel at 'mxu')."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch import api
     from repro_torch.models import gnn
 
     db = dbs[0]
-    for name, (_, _, per_bits) in models.items():
+    for (name, (_, _, per_bits)), mode in itertools.product(models.items(),
+                                                            ("vpu", "mxu")):
         cfg_b, qp = per_bits[8]
+        pol = api.ExecutionPolicy(mode=mode)
+        kernel = "bitserial_mma_kernel" if mode == "mxu" else "bitserial_tile_kernel"
 
         def fn():
-            return gnn.forward_qgtc(qp, db["adj"], db["x"], db["inv_deg"], cfg_b)
+            return gnn.forward_qgtc(qp, db["adj"], db["x"], db["inv_deg"], cfg_b,
+                                    policy=pol)
 
         for _ in range(3):
             fn()
@@ -816,8 +1109,12 @@ def phase_profile(torch, card, models, dbs, reps=5):
                    if e.device_type == DeviceType.CUDA]
         device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-        emit(phase="profile", model=name, bits=8, host_wall_ms=wall_ms,
+        gemm = [e for e in kernels if kernel in e.key]
+        emit(phase="profile", model=name, bits=8, mode=mode, host_wall_ms=wall_ms,
              device_ms=device_ms if kernels else "not measured",
+             gemm_kernel_ms=(sum(e.self_device_time_total for e in gemm) / 1e3 / reps
+                             if gemm else "not measured"),
+             gemm_kernel_launches_per_forward=sum(e.count for e in gemm) / reps,
              device_idle_share=(1 - device_ms / wall_ms) if kernels else "not measured",
              device_ops_per_forward=sum(e.count for e in kernels) / reps,
              top_device_ms=[[e.key[:60], e.self_device_time_total / 1e3 / reps,
@@ -1049,35 +1346,46 @@ def main() -> int:
          seconds=time.perf_counter() - t0, torch=torch.__version__,
          cuda=torch.version.cuda, card=card)
 
-    max_err = phase_kernel_vs_plain(torch, card)
-    errs = phase_new_kernels_vs_plain(torch, card)
+    errs = {"bitserial_gemm": phase_kernel_vs_plain(torch, card)}
+    errs.update(phase_new_kernels_vs_plain(torch, card))
     errs["wq_gemm"] = phase_wq_gemm_vs_plain(torch, card)
-    models, dbs, tiles, launches = phase_main_path(torch, card)
-    api_launches = phase_tensor_api(torch, card, models, dbs)
-    api_launches["wq_gemm"], wq_packed = phase_weight_only(torch, card)
-    kernel_ms, plain_ms, library_ms, bound_ms, bound_by = phase_timing(
-        torch, card, models, dbs, tiles)
-    timing = phase_new_kernel_timing(torch, card, models, dbs)
+    errs.update(phase_mxu_vs_plain(torch, card))
+    # each path runs with every count at 0 just before it and read after it
+    models, dbs, tiles, path_launches, logits = phase_main_path(torch, card)
+    launches = {"bitserial_gemm": path_launches}
+    launches["bitserial_gemm_mxu"] = phase_main_path_mxu(
+        torch, card, models, dbs, tiles, logits)
+    del logits
+    api_launches, kept = phase_tensor_api(torch, card, models, dbs)
+    launches.update({k: api_launches[k] for k in ("bitserial_fused", "bgemm",
+                                                   "bitpack")})
+    mxu_launches = phase_tensor_api_mxu(torch, card, kept)
+    launches.update({k: mxu_launches[k] for k in ("bitserial_fused_mxu",
+                                                   "bgemm_mxu")})
+    del kept
+    launches["wq_gemm"], wq_packed = phase_weight_only(torch, card)
+    timing = phase_timing(torch, card, models, dbs, tiles)
+    timing.update(phase_new_kernel_timing(torch, card, models, dbs))
     phase_fig9a(torch, card, dbs)
     phase_profile(torch, card, models, dbs)
     # the kernels line carries wq_gemm at the gate projection, batch 1
     timing["wq_gemm"] = phase_wq_timing(torch, card, wq_packed)[("wg", 1)]
 
-    rows = [dict(name="bitserial_gemm", launches=launches, max_abs_err=max_err,
-                 ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                 bound_by=bound_by, library_ms=library_ms)]
-    for name, (ms, p_ms, b_ms, b_by, lib_ms) in timing.items():
-        rows.append(dict(name=name, launches=api_launches[name],
-                         max_abs_err=errs[name], ms=ms, plain_ms=p_ms,
-                         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
-    kernels = [{"name": r["name"], "route": "cuda",
-                "source": KERNEL_SOURCES[r["name"]][0],
-                "replaces": KERNEL_SOURCES[r["name"]][1],
-                **{k: v for k, v in r.items() if k != "name"}} for r in rows]
+    kernels = []
+    for name, (source, replaces) in KERNEL_SOURCES.items():
+        ms, p_ms, b_ms, b_by, lib_ms = timing[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "mode": ("mxu" if name in MXU_KERNELS else
+                     "vpu" if f"{name}_mxu" in MXU_KERNELS else None),
+            "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
+            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms})
     print(card, flush=True)
-    emit(kernels=kernels)
-    emit(ok=True, device={"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                          "count": torch.cuda.device_count()})
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 

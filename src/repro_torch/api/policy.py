@@ -6,8 +6,8 @@ The field set is the reference's (``repro.api.policy``):
                             columns, block_w 32-bit words of K. The zero-
                             tile artifacts are built on (block_m, block_w).
   mode                    — 'vpu' (popcount on the CUDA cores) | 'mxu'
-                            (tensor cores: not built yet, the kernel engine
-                            raises NotImplementedError)
+                            (the b1 tensor cores, mma.sync .and.popc); the
+                            same int32 either way, and the same checks
   jump                    — zero-tile jumping (§4.3): none | mask | compact
                             | sgt (single-word columns, kernels/sgt.py)
   reuse                   — §4.4 tile reuse: the s*t plane loop inside one
@@ -21,9 +21,11 @@ The field set is the reference's (``repro.api.policy``):
                             has no interpret mode: a CPU tensor takes a
                             kernel's plain version, a CUDA tensor the kernel.
 
-The checks follow the port's kernel: one CUDA thread per output element
-of a (block_m, block_n) tile, so the tile holds whole warps and at most
-1024 threads, and its shared-memory staging of 8-bit operands fits a block.
+The checks follow the port's 'vpu' kernel: one CUDA thread per output
+element of a (block_m, block_n) tile, so the tile holds whole warps and at
+most 1024 threads, and its shared-memory staging of 8-bit operands fits a
+block. The 'mxu' kernel runs on the same blocks and takes every tile that
+passes them (at most 4 m16 x n8 fragments a warp, no shared memory).
 """
 from __future__ import annotations
 

@@ -3,12 +3,15 @@
 //   A (M, W) x B (W, N) 32-bit words  ->  C (M, N) int32
 //   C[m, n] = sum_w popcount(A[m, w] & B[w, n])
 //
-// Replaces the TPU kernel src/repro/kernels/bgemm.py:bgemm in its 'vpu'
-// mode (_tile_product; bodies _kernel_plain, _kernel_mask, _kernel_compact,
-// the latter run at one-word K tiles for sgt). It is the tile kernel of
-// bitserial_tile.cuh at one plane each: the same staging, the same four
-// schedules, the ragged N edge masked, and no plane loops. It is what the
-// port's reuse=False ablation (paper Fig. 9a) launches once per plane pair.
+// Replaces the TPU kernel src/repro/kernels/bgemm.py:bgemm in both compute
+// modes of _tile_product (bodies _kernel_plain, _kernel_mask,
+// _kernel_compact, the latter run at one-word K tiles for sgt). 'vpu'
+// (bgemm_launch) is the tile kernel of bitserial_tile.cuh at one plane each:
+// the same staging, the same four schedules, the ragged N edge masked, and
+// no plane loops. 'mxu' (bgemm_mxu_launch) is the tensor-core core of
+// bitserial_mma.cuh at one plane each: one b1 mma.sync m16n8k256 .and.popc
+// per 8 visited words. It is what the port's reuse=False ablation (paper
+// Fig. 9a) launches once per plane pair.
 //
 // Bound on this card: it reads M*W*4 + W*N*4 bytes and writes M*N*4, and
 // does M*N*W AND+popcount steps (fewer under the jump schedules). At the
@@ -17,6 +20,7 @@
 //
 // Built as bitserial.cu is, into the same shared library.
 
+#include "bitserial_mma.cuh"
 #include "bitserial_tile.cuh"
 
 extern "C" int bgemm_launch(const void* a, const void* b, void* c, int m,
@@ -28,4 +32,16 @@ extern "C" int bgemm_launch(const void* a, const void* b, void* c, int m,
                                          block_n, kw, schedule, occ, idx,
                                          idx_stride, cnt, steps, Epilogue{},
                                          stream);
+}
+
+// mode="mxu": the same arguments, on the tensor cores.
+extern "C" int bgemm_mxu_launch(const void* a, const void* b, void* c, int m,
+                                int w, int n, int block_m, int block_n, int kw,
+                                int schedule, const void* occ, const void* idx,
+                                int idx_stride, const void* cnt, int steps,
+                                void* stream) {
+  return launch_mma_kernel<true, false>(a, b, c, 1, 1, m, w, n, block_m,
+                                        block_n, kw, schedule, occ, idx,
+                                        idx_stride, cnt, steps, Epilogue{},
+                                        stream);
 }

@@ -16,14 +16,18 @@
 // AND+popcount steps (fewer under the jump schedules). At the GNN path's
 // shapes (N = 16..128, W <= 72) neither bound is reached: a call takes a
 // few microseconds and launch latency and the per-K-step barriers dominate.
-// The paper's b1 tensor-core design (mma.sync m16n8k256 .and.popc) is later
-// work.
+//
+// Two compute modes, as the reference has: 'vpu' (*_launch) runs the
+// popcounts on the CUDA cores (bitserial_tile.cuh); 'mxu' (*_mxu_launch)
+// runs the same schedules on the tensor cores with the b1 mma.sync
+// m16n8k256 .and.popc (bitserial_mma.cuh). Both return the same int32.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -Xcompiler -fPIC, linked with the other csrc/*.cu into one
 //             shared library (plain C interface, loaded by ctypes). Never
 //             with --use_fast_math: the epilogue must round as IEEE float32.
 
+#include "bitserial_mma.cuh"
 #include "bitserial_tile.cuh"
 
 extern "C" int bitserial_gemm_launch(const void* a, const void* b, void* c,
@@ -54,4 +58,34 @@ extern "C" int bitserial_fused_launch(const void* a, const void* b, void* c,
   return launch_tile_kernel<false, true>(a, b, c, s, t, m, w, n, block_m,
                                          block_n, kw, schedule, occ, idx,
                                          idx_stride, cnt, steps, epi, stream);
+}
+
+// mode="mxu": the same arguments, on the tensor cores.
+extern "C" int bitserial_gemm_mxu_launch(const void* a, const void* b, void* c,
+                                         int s, int t, int m, int w, int n,
+                                         int block_m, int block_n, int kw,
+                                         int schedule, const void* occ,
+                                         const void* idx, int idx_stride,
+                                         const void* cnt, int steps,
+                                         void* stream) {
+  return launch_mma_kernel<false, false>(a, b, c, s, t, m, w, n, block_m,
+                                         block_n, kw, schedule, occ, idx,
+                                         idx_stride, cnt, steps, Epilogue{},
+                                         stream);
+}
+
+extern "C" int bitserial_fused_mxu_launch(const void* a, const void* b,
+                                          void* c, int s, int t, int m, int w,
+                                          int n, int block_m, int block_n,
+                                          int kw, int schedule,
+                                          const void* occ, const void* idx,
+                                          int idx_stride, const void* cnt,
+                                          int steps, const void* alpha,
+                                          const void* beta, float qmax,
+                                          int relu, void* stream) {
+  const Epilogue epi{static_cast<const float*>(alpha),
+                     static_cast<const float*>(beta), qmax, relu};
+  return launch_mma_kernel<false, true>(a, b, c, s, t, m, w, n, block_m,
+                                        block_n, kw, schedule, occ, idx,
+                                        idx_stride, cnt, steps, epi, stream);
 }

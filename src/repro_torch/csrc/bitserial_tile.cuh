@@ -51,6 +51,21 @@ struct Epilogue {
   int relu;
 };
 
+// The int32 the kernels store for an accumulator: itself, or under kFused
+// the §4.5 epilogue at (row, col), rounded twice as the reference does.
+template <bool kFused>
+__device__ __forceinline__ int32_t tile_output(uint32_t acc, int row, int col,
+                                               const Epilogue& epi) {
+  int32_t out = static_cast<int32_t>(acc);
+  if (kFused) {
+    float y = __fadd_rn(__fmul_rn(__int2float_rn(out), epi.alpha[row]),
+                        epi.beta[col]);
+    if (epi.relu) y = fmaxf(y, 0.f);
+    out = static_cast<int32_t>(fminf(fmaxf(floorf(y), 0.f), epi.qmax));
+  }
+  return out;
+}
+
 template <bool kOneBit, bool kFused>
 __global__ void bitserial_tile_kernel(const uint32_t* __restrict__ a,
                                       const uint32_t* __restrict__ b,
@@ -134,14 +149,8 @@ __global__ void bitserial_tile_kernel(const uint32_t* __restrict__ a,
   const int row = i * block_m + r;
   const int col = col0 + cl;
   if (col >= n) return;
-  int32_t out = static_cast<int32_t>(acc);
-  if (kFused) {
-    float y = __fadd_rn(__fmul_rn(__int2float_rn(out), epi.alpha[row]),
-                        epi.beta[col]);
-    if (epi.relu) y = fmaxf(y, 0.f);
-    out = static_cast<int32_t>(fminf(fmaxf(floorf(y), 0.f), epi.qmax));
-  }
-  c[static_cast<size_t>(row) * n + col] = out;
+  c[static_cast<size_t>(row) * n + col] =
+      tile_output<kFused>(acc, row, col, epi);
 }
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success). The

@@ -12,8 +12,11 @@ The flags never include ``--use_fast_math``: the fused epilogue, the
 bitpack quantizer and the 4-bit dequantization do float arithmetic that
 must round as IEEE float32 does.
 
-``LAUNCHES`` holds one count per kernel; each wrapper adds one where it
-launches its kernel, and nowhere else.
+``LAUNCHES`` holds one count per kernel, the library's ``{name}_launch``;
+each wrapper adds one where it launches its kernel, and nowhere else. The
+tensor-core kernels of ``mode="mxu"`` count apart from their 'vpu'
+counterparts (``bitserial_gemm_mxu`` beside ``bitserial_gemm``), so that a
+run shows which kernel served it.
 """
 from __future__ import annotations
 
@@ -37,7 +40,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
 LAUNCHES = {"bitserial_gemm": 0, "bitserial_fused": 0, "bgemm": 0,
-            "bitpack": 0, "wq_gemm": 0}
+            "bitpack": 0, "wq_gemm": 0, "bitserial_gemm_mxu": 0,
+            "bitserial_fused_mxu": 0, "bgemm_mxu": 0}
 _lib = None
 
 
@@ -102,18 +106,20 @@ def library() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         # (A, B, C, [s, t,] m, w, n, block_m, block_n, kw, schedule,
         #  occ, idx, idx_stride, cnt, steps, ...)
+        # the mode="mxu" launchers take the same arguments
         gemm = [p, p, p, i, i, i, i, i, i, i, i, i, p, p, i, p, i]
-        lib.bitserial_gemm_launch.argtypes = gemm + [p]
-        lib.bitserial_fused_launch.argtypes = gemm + [p, p, f, i, p]
-        lib.bgemm_launch.argtypes = gemm[:3] + gemm[5:] + [p]
+        for mode in ("", "_mxu"):
+            getattr(lib, f"bitserial_gemm{mode}_launch").argtypes = gemm + [p]
+            getattr(lib, f"bitserial_fused{mode}_launch").argtypes = \
+                gemm + [p, p, f, i, p]
+            getattr(lib, f"bgemm{mode}_launch").argtypes = gemm[:3] + gemm[5:] + [p]
         # (x, scale, zero, out, m, k, words, nbits, qmax, stream)
         lib.bitpack_launch.argtypes = [p, p, p, p, i, i, i, i, f, p]
         # (x, w_packed, scales, out, m, n, k, group, block_m, block_n,
         #  block_k, x_bf16, stream)
         lib.wq_gemm_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
-        for fn in (lib.bitserial_gemm_launch, lib.bitserial_fused_launch,
-                   lib.bgemm_launch, lib.bitpack_launch, lib.wq_gemm_launch):
-            fn.restype = ctypes.c_int
+        for name in LAUNCHES:
+            getattr(lib, f"{name}_launch").restype = ctypes.c_int
         _lib = lib
     return _lib
 

@@ -16,12 +16,18 @@ artifact, as the reference's ``repro.kernels.bitserial`` does:
   compact (idx, cnt, S)     visit only idx[i, :min(cnt[i], S)], k-tiles
   sgt (idx, cnt, S_w)       the same over single words
 
-A CUDA tensor goes to the kernel in ``csrc/bitserial.cu``, a CPU tensor to
+A CUDA tensor goes to a kernel in ``csrc/bitserial.cu``, a CPU tensor to
 the ``*_plain`` version, which honours the same artifacts: it sums only
 the tiles or words they list, so a wrong artifact shows on the CPU as it
 would on the card. There is no fallback from one to the other.
-``LAUNCHES["bitserial_gemm"]`` and ``LAUNCHES["bitserial_fused"]`` count
-the launches (``kernels/_build.py`` builds and loads the library).
+
+``mode`` picks the kernel, as it picks the compute unit in the reference:
+'vpu' the popcount kernel on the CUDA cores (``bitserial_tile.cuh``),
+'mxu' the b1 tensor-core kernel (``bitserial_mma.cuh``). Both return the
+same int32, and so does the plain version, which does not depend on the
+mode. ``LAUNCHES["bitserial_gemm"]``, ``["bitserial_fused"]`` and their
+``*_mxu`` twins count the launches (``kernels/_build.py`` builds and loads
+the library).
 """
 from __future__ import annotations
 
@@ -32,8 +38,9 @@ from repro_torch.kernels._build import (LAUNCHES, check_cuda, kernel_device,
                                        launch, reset_launches)
 
 __all__ = ["bitserial_gemm", "bitserial_gemm_plain", "bitserial_fused",
-           "bitserial_fused_plain", "fused_epilogue", "LAUNCHES",
-           "reset_launches", "MAX_THREADS", "MAX_BITS", "MAX_OUT_BITS"]
+           "bitserial_fused_plain", "fused_epilogue", "kernel_name",
+           "LAUNCHES", "reset_launches", "MAX_THREADS", "MAX_BITS",
+           "MAX_OUT_BITS"]
 
 MAX_THREADS = 1024      # one thread per output element of a (block_m, block_n) tile
 MAX_BITS = 8            # p + q < 32 keeps the kernel's shift defined
@@ -77,9 +84,17 @@ def _schedule(a, b, block_m, block_w, occupancy, compact, sgt):
     return _LIST, kw, steps, None, idx, cnt
 
 
+def kernel_name(base: str, mode: str) -> str:
+    """The kernel that serves ``base`` in compute ``mode``: ``base`` for
+    'vpu', ``base + "_mxu"`` for 'mxu'."""
+    if mode not in ("vpu", "mxu"):
+        raise ValueError(f"mode must be 'vpu' or 'mxu', got {mode!r}")
+    return base if mode == "vpu" else f"{base}_mxu"
+
+
 def tile_launch_args(name, a, b, block_m, block_n, block_w, occupancy, compact, sgt):
-    """Check a launch of the tile kernel (bit-serial, fused or 1-bit);
-    returns (out, the launch's arguments from A to steps)."""
+    """Check a launch of a tile kernel (bit-serial, fused or 1-bit, in
+    either mode); returns (out, the launch's arguments from A to steps)."""
     schedule, kw, steps, occ, idx, cnt = _schedule(
         a, b, block_m, block_w, occupancy, compact, sgt)
     s, m, w = a.shape
@@ -109,20 +124,22 @@ def bitserial_gemm(a: torch.Tensor, b: torch.Tensor, *, block_m: int,
                    block_n: int, block_w: int,
                    occupancy: torch.Tensor | None = None,
                    compact: tuple | None = None,
-                   sgt: tuple | None = None) -> torch.Tensor:
+                   sgt: tuple | None = None,
+                   mode: str = "vpu") -> torch.Tensor:
     """(s, M, W) x (t, W, N) -> (M, N) int32 on the padded grid.
 
-    CUDA tensors launch the kernel on the current stream (no
+    CUDA tensors launch the ``mode``'s kernel on the current stream (no
     synchronisation); CPU tensors take ``bitserial_gemm_plain``.
     """
+    name = kernel_name("bitserial_gemm", mode)
     device = kernel_device(a, b)
     if device is None:
         return bitserial_gemm_plain(a, b, block_m=block_m, block_w=block_w,
                                     occupancy=occupancy, compact=compact,
                                     sgt=sgt)
-    out, args = tile_launch_args("bitserial_gemm", a, b, block_m, block_n,
-                                 block_w, occupancy, compact, sgt)
-    return launch("bitserial_gemm", out, args, device)
+    out, args = tile_launch_args(name, a, b, block_m, block_n, block_w,
+                                 occupancy, compact, sgt)
+    return launch(name, out, args, device)
 
 
 def _check_epilogue(alpha, beta, m, n, out_bits):
@@ -138,10 +155,12 @@ def bitserial_fused(a: torch.Tensor, b: torch.Tensor, alpha: torch.Tensor,
                     block_m: int, block_n: int, block_w: int,
                     occupancy: torch.Tensor | None = None,
                     compact: tuple | None = None,
-                    sgt: tuple | None = None) -> torch.Tensor:
+                    sgt: tuple | None = None,
+                    mode: str = "vpu") -> torch.Tensor:
     """``bitserial_gemm`` with the fused epilogue: (M, N) int32 in
     [0, 2^out_bits - 1]. ``alpha`` is (M, 1) float32 on the padded rows,
     ``beta`` (1, N) float32. CPU tensors take ``bitserial_fused_plain``."""
+    name = kernel_name("bitserial_fused", mode)
     device = kernel_device(a, b)
     _check_epilogue(alpha, beta, a.shape[1], b.shape[2], out_bits)
     if device is None:
@@ -149,13 +168,13 @@ def bitserial_fused(a: torch.Tensor, b: torch.Tensor, alpha: torch.Tensor,
                                      relu=relu, block_m=block_m,
                                      block_w=block_w, occupancy=occupancy,
                                      compact=compact, sgt=sgt)
-    out, args = tile_launch_args("bitserial_fused", a, b, block_m, block_n,
-                                 block_w, occupancy, compact, sgt)
+    out, args = tile_launch_args(name, a, b, block_m, block_n, block_w,
+                                 occupancy, compact, sgt)
     check_cuda("alpha", alpha, device, torch.float32)
     check_cuda("beta", beta, device, torch.float32)
     args += (alpha.data_ptr(), beta.data_ptr(), float((1 << out_bits) - 1),
              int(relu))
-    return launch("bitserial_fused", out, args, device)
+    return launch(name, out, args, device)
 
 
 def _visit_counts(schedule, kw, steps, occ, idx, cnt, mt, w, device):

@@ -6,6 +6,8 @@ keyword overrides (``block_m=``, ``jump=``, ...) win over the policy,
 which wins over DEFAULT_POLICY, as in the reference's
 ``repro.kernels.ops``. The device of the operands decides what runs:
 a CUDA tensor launches the kernel, a CPU tensor takes its plain version.
+``mode`` picks the bit-GEMM kernels' compute unit on the card: 'vpu' the
+CUDA cores, 'mxu' the b1 tensor cores; the plain version serves both.
 """
 from __future__ import annotations
 
@@ -82,13 +84,6 @@ def _jump_artifacts(a, tiles_idx, tiles_cnt, occupancy, jump, block_m,
     return None, None, None
 
 
-def _vpu_only(mode, kernel):
-    if mode != "vpu":
-        raise NotImplementedError(
-            f"mode={mode!r}: the tensor-core {kernel} kernel is not built "
-            "yet; use mode='vpu'")
-
-
 def _bitserial_operands(a_packed, b_packed, tiles, occupancy, kw):
     """Pad (s, M, W) x (t, W, N) to the grid and resolve the artifacts:
     (a, b, dict of the kernel's tile and jump keywords)."""
@@ -99,7 +94,7 @@ def _bitserial_operands(a_packed, b_packed, tiles, occupancy, kw):
     occ, compact, sgt = _jump_artifacts(a, t_idx, t_cnt, occupancy,
                                         kw["jump"], bm, bw, s_max, kind)
     return a, b, dict(block_m=bm, block_n=kw["block_n"], block_w=bw,
-                      occupancy=occ, compact=compact, sgt=sgt)
+                      occupancy=occ, compact=compact, sgt=sgt, mode=kw["mode"])
 
 
 def bgemm(
@@ -122,7 +117,6 @@ def bgemm(
     """
     kw = _resolve(policy, block_m=block_m, block_n=block_n, block_w=block_w,
                   mode=mode, jump=jump)
-    _vpu_only(kw["mode"], "bgemm")
     a, b, kern = _bitserial_operands(a_packed[None], b_packed[None], tiles,
                                      occupancy, kw)
     return _bgemm.bgemm(a[0], b[0], **kern)[:a_packed.shape[0]]
@@ -151,7 +145,6 @@ def bitserial_gemm(
     """
     kw = _resolve(policy, block_m=block_m, block_n=block_n, block_w=block_w,
                   mode=mode, jump=jump)
-    _vpu_only(kw["mode"], "bit-serial")
     a, b, kern = _bitserial_operands(a_packed, b_packed, tiles, occupancy, kw)
     return _bitserial.bitserial_gemm(a, b, **kern)[:a_packed.shape[1]]
 
@@ -182,7 +175,6 @@ def bitserial_fused(
     """
     kw = _resolve(policy, block_m=block_m, block_n=block_n, block_w=block_w,
                   mode=mode, jump=jump)
-    _vpu_only(kw["mode"], "bit-serial")
     m, n = a_packed.shape[1], b_packed.shape[2]
     a, b, kern = _bitserial_operands(a_packed, b_packed, tiles, occupancy, kw)
     al = bitops.pad_to(alpha.to(torch.float32).reshape(m, 1), 0,

@@ -7,6 +7,7 @@ so it runs on a machine that has only the port's dependencies:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 import dataclasses
+import itertools
 
 import numpy as np
 import pytest
@@ -356,3 +357,191 @@ def test_wq_linear_on_card_is_a_float_product(cuda_device):
         assert bool(((y.double() - exact).abs() <= bound).all())
     with pytest.raises(api.UnsupportedOpError):
         nn.wq_linear(x, wq, backend="popcount")
+
+
+# ------------------------------------------------ mode="mxu": the tensor cores
+
+MXU_TILES = [(8, 32, 4), (1, 32, 1), (16, 8, 8), (32, 32, 9)]
+
+
+def _mxu_policy(tile):
+    bm, bn, bw = tile
+    return api.ExecutionPolicy(block_m=bm, block_n=bn, block_w=bw, mode="mxu")
+
+
+def _tile_jump_kwargs(schedule, ap, pol):
+    if schedule == "compact":
+        return {"tiles": zerotile.compact_artifacts(ap, pol.block_m, pol.block_w)}
+    if schedule == "sgt":
+        return {"tiles": sgt.sgt_artifacts(ap, pol.block_m)}
+    return {"jump": schedule}
+
+
+@pytest.mark.parametrize("schedule", ["none", "mask", "compact", "sgt"])
+@pytest.mark.parametrize("tile", MXU_TILES)
+@pytest.mark.parametrize("s,t", [(1, 1), (1, 8), (2, 4), (3, 5), (8, 8)])
+def test_mxu_kernel_matches_plain_on_card(cuda_device, schedule, tile, s, t):
+    pol = _mxu_policy(tile)
+    for pattern in ("random", "block_diag", "zero"):
+        rng = np.random.default_rng(s * 8 + t)
+        a = _operand(rng, 61, 1000, s, pattern)
+        b = rng.integers(0, 1 << t, (1000, 70)).astype(np.int32)
+        ta = bitops.pack_a(torch.as_tensor(a), s)
+        tb = bitops.pack_b(torch.as_tensor(b), t)
+        ca, cb = _on(cuda_device, ta, tb)
+        kw = _tile_jump_kwargs(schedule, ca, pol)
+        before = dict(LAUNCHES)
+        got = ops.bitserial_gemm(ca, cb, policy=pol, **kw)
+        assert LAUNCHES["bitserial_gemm_mxu"] == before["bitserial_gemm_mxu"] + 1
+        assert LAUNCHES["bitserial_gemm"] == before["bitserial_gemm"]
+        vpu = ops.bitserial_gemm(ca, cb, policy=pol.replace(mode="vpu"), **kw)
+        want = ops.bitserial_gemm(ta, tb, policy=pol,
+                                  **_tile_jump_kwargs(schedule, ta, pol))
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), pattern
+        assert torch.equal(got, vpu), pattern
+        np.testing.assert_array_equal(want.numpy(), a.astype(np.int64) @ b)
+
+
+@pytest.mark.parametrize("schedule", ["none", "mask", "compact", "sgt"])
+@pytest.mark.parametrize("tile", MXU_TILES)
+@pytest.mark.parametrize("out_bits,relu", [(8, True), (4, False), (2, True)])
+def test_mxu_fused_kernel_matches_plain_on_card(cuda_device, schedule, tile,
+                                                out_bits, relu):
+    pol = _mxu_policy(tile)
+    s, t, m, k, n = 2, 3, 61, 1000, 70
+    for pattern in ("random", "block_diag", "zero"):
+        rng = np.random.default_rng(out_bits)
+        a = _operand(rng, m, k, s, pattern)
+        b = rng.integers(0, 1 << t, (k, n)).astype(np.int32)
+        alpha = torch.as_tensor((rng.random((m, 1)) * 0.004).astype(np.float32))
+        beta = torch.as_tensor((rng.random((1, n)) * 4 - 2).astype(np.float32))
+        ta = bitops.pack_a(torch.as_tensor(a), s)
+        tb = bitops.pack_b(torch.as_tensor(b), t)
+        ca, cb, cal, cbe = _on(cuda_device, ta, tb, alpha, beta)
+        kw = dict(out_bits=out_bits, relu=relu, **_tile_jump_kwargs(schedule, ca, pol))
+        before = dict(LAUNCHES)
+        got = ops.bitserial_fused(ca, cb, cal, cbe, policy=pol, **kw)
+        assert LAUNCHES["bitserial_fused_mxu"] == before["bitserial_fused_mxu"] + 1
+        assert LAUNCHES["bitserial_fused"] == before["bitserial_fused"]
+        vpu = ops.bitserial_fused(ca, cb, cal, cbe, policy=pol.replace(mode="vpu"),
+                                  **kw)
+        want = ops.bitserial_fused(ta, tb, alpha, beta, out_bits=out_bits,
+                                   relu=relu, policy=pol,
+                                   **_tile_jump_kwargs(schedule, ta, pol))
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), pattern
+        assert torch.equal(got, vpu), pattern
+
+
+@pytest.mark.parametrize("schedule", ["none", "mask", "compact", "sgt"])
+@pytest.mark.parametrize("pattern", ["random", "block_diag", "zero"])
+@pytest.mark.parametrize("tile", MXU_TILES)
+def test_mxu_bgemm_kernel_matches_plain_on_card(cuda_device, schedule, pattern,
+                                                tile):
+    pol = _mxu_policy(tile)
+    rng = np.random.default_rng(len(pattern))
+    a = _operand(rng, 61, 1000, 1, pattern)
+    b = rng.integers(0, 2, (1000, 70)).astype(np.int32)
+    ta = bitops.pack_a(torch.as_tensor(a), 1)[0]
+    tb = bitops.pack_b(torch.as_tensor(b), 1)[0]
+    ca, cb = _on(cuda_device, ta, tb)
+    kw = _tile_jump_kwargs(schedule, ca, pol)
+    before = dict(LAUNCHES)
+    got = ops.bgemm(ca, cb, policy=pol, **kw)
+    assert LAUNCHES["bgemm_mxu"] == before["bgemm_mxu"] + 1
+    assert LAUNCHES["bgemm"] == before["bgemm"]
+    vpu = ops.bgemm(ca, cb, policy=pol.replace(mode="vpu"), **kw)
+    want = ops.bgemm(ta, tb, policy=pol, **_tile_jump_kwargs(schedule, ta, pol))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got, vpu)
+    np.testing.assert_array_equal(want.numpy(), a.astype(np.int64) @ b)
+
+
+def _word(bit):
+    """A 32-bit word with one bit set, as the int32 bit pattern."""
+    return (1 << bit) - (1 << 32) if bit == 31 else 1 << bit
+
+
+@pytest.mark.parametrize("tile", [(16, 8, 8), (8, 32, 4)])
+def test_mxu_fragment_layout_one_hot(cuda_device, tile):
+    """One set bit of A at every (row < 16, word < 8, bit in {0, 31})
+    against a B of all ones lights exactly that row; one set bit of B at
+    every (word, column) against an A of all ones lights exactly that
+    column. This pins the m16n8k256 fragment layout."""
+    pol = _mxu_policy(tile)
+    ones_b = torch.full((8, 8), -1, dtype=torch.int32, device=cuda_device)
+    ones_a = torch.full((16, 8), -1, dtype=torch.int32, device=cuda_device)
+    for row, word, bit in itertools.product(range(16), range(8), (0, 31)):
+        a = torch.zeros((16, 8), dtype=torch.int32)
+        a[row, word] = _word(bit)
+        want = torch.zeros((16, 8), dtype=torch.int32)
+        want[row] = 1
+        got = ops.bgemm(a.to(cuda_device), ones_b, policy=pol)
+        assert torch.equal(got.cpu(), want), (row, word, bit)
+        got = ops.bitserial_gemm(a[None].to(cuda_device), ones_b[None], policy=pol)
+        assert torch.equal(got.cpu(), want), (row, word, bit)
+        col = row % 8
+        bw = torch.zeros((8, 8), dtype=torch.int32)
+        bw[word, col] = _word(bit)
+        want = torch.zeros((16, 8), dtype=torch.int32)
+        want[:, col] = 1
+        got = ops.bgemm(ones_a, bw.to(cuda_device), policy=pol)
+        assert torch.equal(got.cpu(), want), (word, col, bit)
+
+
+@pytest.mark.parametrize("model", ["gcn", "gin"])
+def test_forward_qgtc_at_mxu_on_card_equals_plain_engine(cuda_device, model):
+    n, d = 300, 128
+    rng = np.random.default_rng(0)
+    adj = (rng.random((n, n)) < 0.02).astype(np.int32)
+    np.fill_diagonal(adj, 0)
+    adj = torch.as_tensor(adj, device=cuda_device)
+    x = torch.as_tensor(rng.normal(size=(n, d)).astype(np.float32), device=cuda_device)
+    inv_deg = 1.0 / (adj.sum(1, keepdim=True).float() + 1.0)
+    make = gnn.GNNConfig.paper_gcn if model == "gcn" else gnn.GNNConfig.paper_gin
+    cfg = dataclasses.replace(make(d, 40), x_bits=4, w_bits=4)
+    params = gnn.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                             device=cuda_device)
+    qp = gnn.quantize_params(params, cfg)
+    ap = bitops.pack_a(adj, 1)
+    mxu = api.ExecutionPolicy(mode="mxu")
+    want = gnn.forward_qgtc(qp, adj, x, inv_deg, cfg, backend="popcount")
+    for tiles in (None, zerotile.compact_artifacts(ap, POL.block_m, POL.block_w),
+                  sgt.sgt_artifacts(ap, POL.block_m)):
+        before = dict(LAUNCHES)
+        got = gnn.forward_qgtc(qp, adj, x, inv_deg, cfg, tiles=tiles, policy=mxu)
+        assert LAUNCHES["bitserial_gemm_mxu"] - before["bitserial_gemm_mxu"] == \
+            cfg.layers * (2 if model == "gcn" else 3)
+        assert LAUNCHES["bitserial_gemm"] == before["bitserial_gemm"]
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+def test_tensor_api_at_mxu_on_card(cuda_device):
+    """The fused bitmm2bit and the reuse=False adjacency product at 'mxu':
+    equal to 'vpu', through the mxu kernels only."""
+    rng = np.random.default_rng(1)
+    adj = torch.as_tensor((rng.random((300, 300)) < 0.03).astype(np.int32),
+                          device=cuda_device)
+    h = torch.as_tensor(rng.normal(size=(300, 128)).astype(np.float32),
+                        device=cuda_device)
+    w = torch.as_tensor(rng.normal(size=(128, 16)).astype(np.float32),
+                        device=cuda_device)
+    th, tw = bt.to_bit(h, 4, pack_axis=1), bt.to_bit(w, 4, pack_axis=0)
+    qp = calibrate(bt.bitmm2int(th, tw, backend="popcount").float(), 4)
+    mxu = api.ExecutionPolicy(mode="mxu", fused_requantize=True)
+    before = dict(LAUNCHES)
+    got = bt.bitmm2bit(th, tw, 4, qp, policy=mxu)
+    assert LAUNCHES["bitserial_fused_mxu"] == before["bitserial_fused_mxu"] + 1
+    want = bt.bitmm2bit(th, tw, 4, qp, policy=mxu.replace(mode="vpu"))
+    assert torch.equal(got.data, want.data)
+    ta = bt.to_bit(adj, 1, pack_axis=1)
+    tx = bt.to_bit(bt.to_val(th), 4, pack_axis=0)
+    before = dict(LAUNCHES)
+    no_reuse = bt.bitmm2int(ta, tx, policy=mxu.replace(reuse=False))
+    assert LAUNCHES["bgemm_mxu"] == before["bgemm_mxu"] + 4
+    assert LAUNCHES["bgemm"] == before["bgemm"]
+    torch.cuda.synchronize()
+    assert torch.equal(no_reuse, bt.bitmm2int(ta, tx))

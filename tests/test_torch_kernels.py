@@ -175,8 +175,10 @@ def test_bgemm_tiles_contract():
         ops.bgemm(ta, tb, tiles=(idx, cnt, float(s_max), "sgt"))
     with pytest.raises(ValueError, match="kind"):
         ops.bgemm(ta, tb, tiles=(idx, cnt, s_max, "bogus"))
-    with pytest.raises(NotImplementedError, match="mxu"):
-        ops.bgemm(ta, tb, mode="mxu")
+    # mode="mxu" on CPU tensors takes the plain version: the 'vpu' int32
+    mxu = ops.bgemm(ta, tb, mode="mxu")
+    assert torch.equal(mxu, ops.bgemm(ta, tb, mode="vpu"))
+    np.testing.assert_array_equal(mxu.numpy(), a.astype(np.int64) @ a.T)
 
 
 def test_bgemm_plain_honours_the_artifacts():

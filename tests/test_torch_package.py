@@ -180,12 +180,21 @@ def test_tiles_beat_occupancy_beat_recompute():
 
 def test_kernel_engine_rejects_what_it_cannot_run():
     a, b, ta, tb = _packed()
-    with pytest.raises(NotImplementedError, match="mxu"):
-        ops.bitserial_gemm(ta, tb, mode="mxu")
-    with pytest.raises(NotImplementedError, match="mxu"):
-        ops.bgemm(ta[0], tb[0], mode="mxu")
-    with pytest.raises(NotImplementedError, match="mxu"):
-        api.bgemm(ta[0], tb[0], policy=api.ExecutionPolicy(mode="mxu"))
+    # mode="mxu" is served: on CPU tensors by the plain version, which
+    # gives the 'vpu' int32 and a @ b
+    mxu = ops.bitserial_gemm(ta, tb, mode="mxu")
+    assert torch.equal(mxu, ops.bitserial_gemm(ta, tb, mode="vpu"))
+    np.testing.assert_array_equal(mxu.numpy(), a.astype(np.int64) @ b)
+    vpu_1bit = ops.bgemm(ta[0], tb[0], mode="vpu")
+    np.testing.assert_array_equal(vpu_1bit.numpy(),
+                                  a.astype(np.int64) @ (b & 1))
+    for mxu_1bit in (ops.bgemm(ta[0], tb[0], mode="mxu"),
+                     api.bgemm(ta[0], tb[0],
+                               policy=api.ExecutionPolicy(mode="mxu"))):
+        assert torch.equal(mxu_1bit, vpu_1bit)
+    # an unknown mode is still refused, on any device
+    with pytest.raises(ValueError, match="mode"):
+        ops.bgemm(ta[0], tb[0], mode="simd")
     # reuse=False is no longer refused: one bgemm pass per plane pair,
     # equal to the one-kernel reuse=True product (CPU tensors: plain versions)
     no_reuse = api.bitserial_mm_packed(ta, tb,
