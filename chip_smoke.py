@@ -23,7 +23,11 @@ without printing a result:
      bitserial_fused_mxu and bgemm_mxu, each equal to its plain version
      and to the 'vpu' kernel at plane pairs (1,1)..(8,8), patterns random,
      zero and block-diagonal, and tiles (8,32,4), (1,32,1), (16,8,8) and
-     (32,32,9); and one-hot checks that pin the mma fragment layout.
+     (32,32,9); and one-hot checks that pin the mma fragment layout. Then
+     the 'vpu' kernels again at those tiles and at (1,1024,4) and
+     (1024,1,1), each equal to its plain version, and one-hot words (one
+     set bit a row of A, or a column of B, at every plane, word and end
+     bit, across the kernel's 32-word chunks and column blocks).
   3. main path — ogbn-arxiv at full scale, partitioned into 1500 parts
      (Cluster-GCN's setting), batches of 20 parts; the first 8 batches
      are served through forward_qgtc for qgtc-gcn and qgtc-gin at 8, 4
@@ -94,11 +98,16 @@ FUSED_EPILOGUES = ((8, True), (8, False), (4, True), (4, False), (2, True),
 PACK_BITS = (1, 2, 5, 8)
 PACK_SHAPES = ((37, 333), (129, 33), (61, 1000), (2304, 128))
 SCHEDULES = ("dense", "mask", "compact", "sgt")
-# H100 SXM published peaks: HBM bytes/s, and the 32-bit rate outside the
-# tensor cores, which is where the kernels' AND, popcount and float
-# epilogue run.
+# H100 SXM published peaks: HBM bytes/s, and the float32 rate outside the
+# tensor cores, where bitpack's and wq_gemm's float arithmetic runs.
 PEAK_BYTES_S = 3.35e12
-PEAK_OPS_S = 67e12
+PEAK_F32_S = 67e12
+# The 'vpu' kernels' integer rates, results a clock on one SM for compute
+# capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
+# throughput): popcount 16, and 64 for the 32-bit AND (LOP3) and the
+# shift-adds. Times the SM count and the SM clock nvidia-smi reports.
+POPC_PER_CLOCK_SM = 16
+LOP3_PER_CLOCK_SM = 64
 KERNEL_SOURCES = {
     "bitserial_gemm": ("src/repro_torch/csrc/bitserial.cu",
                        "src/repro/kernels/bitserial.py:245"),
@@ -122,6 +131,9 @@ MXU_KERNELS = ("bitserial_gemm_mxu", "bitserial_fused_mxu", "bgemm_mxu")
 # down to one row and to one fragment, and a K tile of 9 words
 MXU_TILES = ((8, 32, 4), (1, 32, 1), (16, 8, 8), (32, 32, 9))
 MXU_EPILOGUES = ((8, True), (4, False), (2, True))
+# 'vpu' checks at the non-default tiles: those of mxu, and the two extreme
+# tiles the policy accepts, one row by 1024 columns and 1024 rows by one
+VPU_TILES = MXU_TILES + ((1, 1024, 4), (1024, 1, 1))
 # bit-serial GEMMs of one forward_qgtc: two per GCN layer, three per GIN layer
 PER_FORWARD = {"gcn": 6, "gin": 9}
 # wq_gemm: the reference test's (M, K, N) and a ragged one, group sizes,
@@ -199,34 +211,56 @@ def graph_ms(torch, fn, *, reps=50, repeats=5) -> float:
 
 
 def roofline(nbytes, ops) -> tuple[float, str]:
-    """Least time (ms) to move ``nbytes`` and do ``ops``, and which bounds."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
+    """Least time (ms) to move ``nbytes`` and do ``ops`` float32 operations,
+    and which bounds."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def bound(a_packed, t, n, *, fused=False, tensor_cores=False) -> tuple[float, str]:
+def int_rates(torch) -> dict:
+    """The card's popcount and LOP3 rates (results/s): the per-SM rates of
+    compute capability 9.0 times the SM count and the SM clock that
+    nvidia-smi reports (clocks.max.sm, MHz)."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return {"sm_clock_mhz": mhz, "sms": sms,
+            "popc_s": POPC_PER_CLOCK_SM * sms * mhz * 1e6,
+            "lop3_s": LOP3_PER_CLOCK_SM * sms * mhz * 1e6}
+
+
+def bound(a_packed, t, n, rates, *, fused=False,
+          tensor_cores=False) -> tuple[float, str]:
     """Least time (ms) for the bit-serial GEMM on these inputs, and what
     bounds it.
 
     Bytes: every input word read once, every output written once. Operations:
     one AND and one popcount per non-zero word of A, per plane of B, per
     output column; a zero word adds nothing, whatever the schedule, so the
-    work this data needs counts only the non-zero ones. The fused epilogue
-    adds alpha and beta (4 bytes a row and a column) and six operations per
-    output (convert, multiply, add, max, floor, clip).
+    work this data needs counts only the non-zero ones. The popcounts run at
+    ``rates["popc_s"]``, the ANDs at ``rates["lop3_s"]``, on separate units:
+    the slower sets the time. The fused epilogue adds alpha and beta (4
+    bytes a row and a column) and, per output, two conversions (16 a clock
+    on an SM, the popcount rate, taken as a unit of their own) and four
+    float operations (counted with the ANDs).
 
     ``tensor_cores``: the mode="mxu" kernels run the AND and popcount on the
     b1 tensor cores, whose rate NVIDIA's data sheet does not give; the bound
     is then the bytes alone (the operations side, even at the CUDA cores'
-    67 T/s, is below the bytes at the GNN shapes, and far below at any
-    tensor-core rate)."""
+    popcount rate, is below the bytes at most GNN shapes, and far below at
+    any tensor-core rate)."""
     s, m, w = a_packed.shape
     nonzero_words = int((a_packed != 0).sum())
     nbytes = 4 * (s * m * w + t * w * n + m * n)
-    ops = 2 * t * n * nonzero_words
+    pops = ands = t * n * nonzero_words
+    converts = 0
     if fused:
-        nbytes, ops = nbytes + 4 * (m + n), ops + 6 * m * n
-    return roofline(nbytes, 0 if tensor_cores else ops)
+        nbytes, converts, ands = nbytes + 4 * (m + n), 2 * m * n, ands + 4 * m * n
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = 0.0 if tensor_cores else 1e3 * max(
+        pops / rates["popc_s"], converts / rates["popc_s"], ands / rates["lop3_s"])
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def turns_ms(torch, fns: dict, *, reps=50) -> dict:
@@ -450,56 +484,63 @@ def _one_hot_checks(torch, ops, pol) -> int:
     return checks
 
 
-def phase_mxu_vs_plain(torch, card):
-    """The mode="mxu" kernels (bitserial_gemm in the four schedules,
-    bitserial_fused, bgemm) against their plain versions and against the
-    'vpu' kernels on the same CUDA tensors, at every MXU_TILES tile; then
-    the one-hot fragment checks. Returns {kernel: max_abs_err}."""
-    from repro_torch import api
-    from repro_torch.core import bitops
-    from repro_torch.kernels import bgemm, bitserial, ops
-
-    gen = torch.Generator().manual_seed(9)
-    errs = dict.fromkeys(MXU_KERNELS, 0)
-    checks = dict.fromkeys(MXU_KERNELS, 0)
+def _tile_cases():
+    """The shapes and plane pairs of the checks at non-default tiles:
+    (kind, ((m, k, n), (s, t))) for kind 'gemm', 'fused' and 'bgemm'."""
     gemm_cases = [(shape, st) for shape in RAGGED for st in ST_PAIRS]
     gemm_cases += [((2048, 2048, 16), (1, 8)), ((2048, 128, 64), (8, 8))]
     fused_cases = [(shape, st) for shape in RAGGED for st in ST_PAIRS]
     one_bit = list(RAGGED) + [(2048, 2048, 16), (2304, 2304, 128)]
-    cases = ([("gemm", c) for c in gemm_cases] + [("fused", c) for c in fused_cases]
-             + [("bgemm", (shape, (1, 1))) for shape in one_bit])
-    for kind, ((m, k, n), (s, t)) in cases:
+    return ([("gemm", c) for c in gemm_cases] + [("fused", c) for c in fused_cases]
+            + [("bgemm", (shape, (1, 1))) for shape in one_bit])
+
+
+def _tiles_vs_plain(torch, gen, mode, tiles):
+    """The three kernels of ``mode`` at each tile of ``tiles``, in the four
+    schedules, on the random, zero and block-diagonal patterns of
+    ``_tile_cases``, each equal to its plain version; at 'mxu' each also
+    equal to the 'vpu' kernel. Returns ({kernel: max_abs_err}, {kernel:
+    checks})."""
+    from repro_torch import api
+    from repro_torch.core import bitops
+    from repro_torch.kernels import bgemm, bitserial, ops
+
+    names = {kind: bitserial.kernel_name(base, mode) for kind, base in (
+        ("gemm", "bitserial_gemm"), ("fused", "bitserial_fused"), ("bgemm", "bgemm"))}
+    errs = dict.fromkeys(names.values(), 0)
+    checks = dict.fromkeys(names.values(), 0)
+    for kind, ((m, k, n), (s, t)) in _tile_cases():
         for pattern in ("random", "zero", "block_diag"):
             a = _operand(torch, gen, m, k, s, pattern)
             b = torch.randint(0, 1 << t, (k, n), generator=gen, dtype=torch.int32)
             top = max(int((a.double() @ b.double()).max()), 1)
             ap, bp = bitops.pack_a(a, s).to(DEVICE), bitops.pack_b(b, t).to(DEVICE)
-            for bm, bn, bw in MXU_TILES:
+            for bm, bn, bw in tiles:
                 pol = api.ExecutionPolicy(block_m=bm, block_n=bn, block_w=bw,
-                                          mode="mxu")
+                                          mode=mode)
                 vpu = pol.replace(mode="vpu")
                 a_pad = bitops.pad_to(bitops.pad_to(ap, 1, bm), 2, bw)
                 b_pad = bitops.pad_to(bp, 1, bw)
                 grid = dict(block_m=bm, block_w=bw)
+                key = names[kind]
                 for name, (wrap_kw, plain_kw) in _schedules(ap, a_pad, pol).items():
-                    what = (f"{kind} mxu {(m, k, n)} s={s} t={t} {pattern} "
+                    what = (f"{kind} {mode} {(m, k, n)} s={s} t={t} {pattern} "
                             f"{name} tile={(bm, bn, bw)}")
                     if kind == "gemm":
                         got = ops.bitserial_gemm(ap, bp, policy=pol, **wrap_kw)
-                        ref = ops.bitserial_gemm(ap, bp, policy=vpu, **wrap_kw)
+                        ref = (mode == "mxu" and
+                               ops.bitserial_gemm(ap, bp, policy=vpu, **wrap_kw))
                         plain = bitserial.bitserial_gemm_plain(
                             a_pad, b_pad, **grid, **plain_kw)[:m]
-                        key = "bitserial_gemm_mxu"
                         pairs = [(None, None)]
                     elif kind == "bgemm":
                         got = ops.bgemm(ap[0], bp[0], policy=pol, **wrap_kw)
-                        ref = ops.bgemm(ap[0], bp[0], policy=vpu, **wrap_kw)
+                        ref = (mode == "mxu" and
+                               ops.bgemm(ap[0], bp[0], policy=vpu, **wrap_kw))
                         plain = bgemm.bgemm_plain(a_pad[0], b_pad[0], **grid,
                                                   **plain_kw)[:m]
-                        key = "bgemm_mxu"
                         pairs = [(None, None)]
                     else:
-                        key = "bitserial_fused_mxu"
                         pairs = MXU_EPILOGUES
                     for out_bits, relu in pairs:
                         check = what
@@ -511,26 +552,114 @@ def phase_mxu_vs_plain(torch, card):
                             epi = dict(out_bits=out_bits, relu=relu)
                             got = ops.bitserial_fused(ap, bp, alpha, beta, policy=pol,
                                                       **epi, **wrap_kw)
-                            ref = ops.bitserial_fused(ap, bp, alpha, beta, policy=vpu,
-                                                      **epi, **wrap_kw)
+                            ref = mode == "mxu" and ops.bitserial_fused(
+                                ap, bp, alpha, beta, policy=vpu, **epi, **wrap_kw)
                             plain = bitserial.bitserial_fused_plain(
                                 a_pad, b_pad, bitops.pad_to(alpha, 0, bm), beta,
                                 **epi, **grid, **plain_kw)[:m]
                             check += f" out_bits={out_bits} relu={relu}"
                         err = _max_err(torch, got, plain, check)
-                        if not torch.equal(got, ref):
+                        if mode == "mxu" and not torch.equal(got, ref):
                             raise AssertionError(f"mxu kernel != vpu kernel: {check}")
                         errs[key] = max(errs[key], err)
                         checks[key] += 1
+    return errs, checks
+
+
+def _one_hot_words(torch, ops, pol, s, t, words=40) -> int:
+    """The lane-to-word, plane and column mapping of either mode, on one
+    call each: A with one set bit a row, at every (plane p < s, word <
+    ``words``, bit 0 or 31), times a random t-plane B of 40 columns; and a
+    random s-plane A times B with one set bit a column, at every (plane q <
+    t, word, bit 0 or 31). ``words`` past 32 crosses the 'vpu' kernel's
+    32-word chunks, t * words * 2 columns its column blocks. Each product is
+    exact (one non-zero term a row or column); bitserial_gemm in the four
+    schedules, bitserial_fused under an identity epilogue (alpha 1, beta 0,
+    out_bits 30), and bgemm at s = t = 1. Returns the number of checks."""
+    from repro_torch.core import bitops
+
+    gen = torch.Generator().manual_seed(s * 16 + t)
+    k = 32 * words
+    hot = [(p, wd, bit) for p in range(max(s, t)) for wd in range(words)
+           for bit in (0, 31)]
+    a_hot = torch.zeros((len(hot), k), dtype=torch.int64)
+    for r, (p, wd, bit) in enumerate(hot):
+        a_hot[r, 32 * wd + bit] = 1 << p
+    a_hot = a_hot[:s * words * 2]  # rows of planes < s
+    b_hot = torch.zeros((k, t * words * 2), dtype=torch.int64)
+    for col, (q, wd, bit) in enumerate(hot[:t * words * 2]):
+        b_hot[32 * wd + bit, col] = 1 << q
+    b_rand = torch.randint(0, 1 << t, (k, 40), generator=gen, dtype=torch.int64)
+    a_rand = torch.randint(0, 1 << s, (64, k), generator=gen, dtype=torch.int64)
+    checks = 0
+    for a, b in ((a_hot, b_rand), (a_rand, b_hot)):
+        exact = (a @ b).to(torch.int32).to(DEVICE)
+        ap = bitops.pack_a(a.to(torch.int32), s).to(DEVICE)
+        bp = bitops.pack_b(b.to(torch.int32), t).to(DEVICE)
+        a_pad = bitops.pad_to(bitops.pad_to(ap, 1, pol.block_m), 2, pol.block_w)
+        m, n = a.shape[0], b.shape[1]
+        one = torch.ones((m, 1), device=DEVICE)
+        zero = torch.zeros((1, n), device=DEVICE)
+        for name, (wrap_kw, _) in _schedules(ap, a_pad, pol).items():
+            got = {"bitserial_gemm": ops.bitserial_gemm(ap, bp, policy=pol, **wrap_kw),
+                   "bitserial_fused": ops.bitserial_fused(
+                       ap, bp, one, zero, out_bits=30, relu=False, policy=pol,
+                       **wrap_kw)}
+            if s == t == 1:
+                got["bgemm"] = ops.bgemm(ap[0], bp[0], policy=pol, **wrap_kw)
+            for kernel, out in got.items():
+                _max_err(torch, out, exact, f"one-hot words {pol.mode} {kernel} "
+                                            f"s={s} t={t} {name} tile="
+                                            f"{pol.block_m, pol.block_n, pol.block_w}")
+                checks += 1
+    return checks
+
+
+def phase_vpu_tiles_vs_plain(torch, card):
+    """The 'vpu' kernels (bitserial_gemm in the four schedules,
+    bitserial_fused, bgemm) against their plain versions at every VPU_TILES
+    tile: the launch no longer follows the tile, so each tile's artifacts
+    and ragged edges are checked apart; then one-hot words at three tiles.
+    Returns {kernel: max_abs_err}."""
+    from repro_torch import api
+    from repro_torch.kernels import ops
+
+    errs, checks = _tiles_vs_plain(torch, torch.Generator().manual_seed(12),
+                                   "vpu", VPU_TILES)
+    one_hot = sum(_one_hot_words(torch, ops, api.ExecutionPolicy(
+        block_m=bm, block_n=bn, block_w=bw), s, t)
+        for bm, bn, bw in ((8, 32, 4), (1, 1024, 4), (1024, 1, 1))
+        for s, t in ((1, 1), (1, 8), (8, 8), (3, 5)))
+    emit(phase="kernel_vs_plain", mode="vpu", checks=checks,
+         one_hot_word_checks=one_hot, schedules=list(SCHEDULES),
+         st_pairs=[list(p) for p in ST_PAIRS], tiles=[list(x) for x in VPU_TILES],
+         epilogues=[list(e) for e in MXU_EPILOGUES],
+         cases=[[kind, *shape, *st] for kind, (shape, st) in _tile_cases()],
+         patterns=["random", "zero", "block_diag"], equal_plain=True,
+         max_abs_err=errs, card=card)
+    return errs
+
+
+def phase_mxu_vs_plain(torch, card):
+    """The mode="mxu" kernels (bitserial_gemm in the four schedules,
+    bitserial_fused, bgemm) against their plain versions and against the
+    'vpu' kernels on the same CUDA tensors, at every MXU_TILES tile; then
+    the one-hot fragment checks. Returns {kernel: max_abs_err}."""
+    from repro_torch import api
+    from repro_torch.kernels import ops
+
+    errs, checks = _tiles_vs_plain(torch, torch.Generator().manual_seed(9),
+                                   "mxu", MXU_TILES)
     one_hot = sum(_one_hot_checks(torch, ops, api.ExecutionPolicy(
         block_m=bm, block_n=bn, block_w=bw, mode="mxu"))
         for bm, bn, bw in ((16, 8, 8), (8, 32, 4)))
+    cases = _tile_cases()
     emit(phase="kernel_vs_plain", mode="mxu", checks=checks,
          one_hot_checks=one_hot, schedules=list(SCHEDULES),
          st_pairs=[list(p) for p in ST_PAIRS], tiles=[list(x) for x in MXU_TILES],
          epilogues=[list(e) for e in MXU_EPILOGUES],
-         gemm_shapes=[[*shape, *st] for shape, st in gemm_cases],
-         bgemm_shapes=[list(x) for x in one_bit],
+         gemm_shapes=[[*shape, *st] for kind, (shape, st) in cases if kind == "gemm"],
+         bgemm_shapes=[list(shape) for kind, (shape, _) in cases if kind == "bgemm"],
          patterns=["random", "zero", "block_diag"],
          equal_plain=True, equal_vpu_kernel=True, max_abs_err=errs, card=card)
     return errs
@@ -834,7 +963,7 @@ def phase_tensor_api_mxu(torch, card, kept):
     return launches
 
 
-def phase_timing(torch, card, models, dbs, tiles):
+def phase_timing(torch, card, rates, models, dbs, tiles):
     """fig7 per batch, and bitserial_gemm alone at the adjacency GEMM in both
     modes, 'vpu' and 'mxu' timed in turns. Returns {kernel: (ms, plain_ms,
     bound_ms, bound_by, library_ms)} for bitserial_gemm and its mxu twin."""
@@ -887,11 +1016,11 @@ def phase_timing(torch, card, models, dbs, tiles):
     if not torch.equal(torch.matmul(a_f, v_f).to(torch.int32),
                        ops.bitserial_gemm(ap, bp)):
         raise AssertionError("float32 matmul yardstick is not exact here")
-    bound_ms, bound_by = bound(ap, t, n)
+    bound_ms, bound_by = bound(ap, t, n, rates)
     emit(phase="kernel_timing", kernel="bitserial_gemm", schedule="dense",
          shape=[s, m, w, t, n], ms=kernel_ms, plain_ms=plain_ms,
          library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, card=card)
-    mxu_bound = bound(ap, t, n, tensor_cores=True)
+    mxu_bound = bound(ap, t, n, rates, tensor_cores=True)
     out = {"bitserial_gemm": (kernel_ms, plain_ms, bound_ms, bound_by, library_ms),
            "bitserial_gemm_mxu": (both["mxu"], plain_ms, *mxu_bound, library_ms)}
     emit(phase="kernel_timing", kernel="bitserial_gemm_mxu", schedule="dense",
@@ -928,15 +1057,16 @@ def phase_timing(torch, card, models, dbs, tiles):
     x_f, w_f = xq.double().to(DEVICE), wq.double().to(DEVICE)
     ms_lib = graph_ms(torch, lambda: torch.matmul(x_f, w_f))
     for name, mode_ms, (b_ms, b_by) in (
-            ("bitserial_gemm", ms["vpu"], bound(xp, 8, 64)),
-            ("bitserial_gemm_mxu", ms["mxu"], bound(xp, 8, 64, tensor_cores=True))):
+            ("bitserial_gemm", ms["vpu"], bound(xp, 8, 64, rates)),
+            ("bitserial_gemm_mxu", ms["mxu"],
+             bound(xp, 8, 64, rates, tensor_cores=True))):
         emit(phase="kernel_timing", kernel=name, schedule="dense",
              shape=list(xp.shape) + [8, 64], ms=mode_ms, plain_ms=ms_plain,
              library_ms_float64=ms_lib, bound_ms=b_ms, bound_by=b_by, card=card)
     return out
 
 
-def phase_new_kernel_timing(torch, card, models, dbs):
+def phase_new_kernel_timing(torch, card, rates, models, dbs):
     """Each new kernel alone at its Tensor API shape on batch 0; the fused
     and 1-bit kernels in both modes, timed in turns. Returns {kernel: (ms,
     plain_ms, bound_ms, bound_by, library_ms)}."""
@@ -979,7 +1109,8 @@ def phase_new_kernel_timing(torch, card, models, dbs):
         a_pad, b_pad, al, beta, out_bits=8, relu=False, block_m=pol.block_m,
         block_w=pol.block_w), reps=3)
     for name, mode in (("bitserial_fused", "vpu"), ("bitserial_fused_mxu", "mxu")):
-        b_ms, b_by = bound(ap, 8, n, fused=True, tensor_cores=mode == "mxu")
+        b_ms, b_by = bound(ap, 8, n, rates, fused=True,
+                           tensor_cores=mode == "mxu")
         out[name] = (ms[mode], plain_ms, b_ms, b_by, None)
         emit(phase="kernel_timing", kernel=name, schedule="dense",
              shape=list(ap.shape) + [8, n], ms=ms[mode], plain_ms=plain_ms,
@@ -1002,7 +1133,8 @@ def phase_new_kernel_timing(torch, card, models, dbs):
         a1, plane, block_m=pol.block_m, block_w=pol.block_w), reps=3)
     library_ms = graph_ms(torch, lambda: torch.matmul(a_f, p_f))
     for name, mode in (("bgemm", "vpu"), ("bgemm_mxu", "mxu")):
-        b_ms, b_by = bound(a1[None], 1, plane.shape[1], tensor_cores=mode == "mxu")
+        b_ms, b_by = bound(a1[None], 1, plane.shape[1], rates,
+                           tensor_cores=mode == "mxu")
         out[name] = (ms[mode], plain_ms, b_ms, b_by, library_ms)
         emit(phase="kernel_timing", kernel=name, schedule="dense",
              shape=list(a1.shape) + [plane.shape[1]], ms=ms[mode],
@@ -1341,15 +1473,19 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build()
     _build.library()
+    rates = int_rates(torch)
     emit(phase="build", kernels=list(_build.LAUNCHES),
          sources=[str(p.relative_to(REPO)) for p in _build.sources()],
          seconds=time.perf_counter() - t0, torch=torch.__version__,
-         cuda=torch.version.cuda, card=card)
+         cuda=torch.version.cuda, int_rates=rates, card=card)
 
     errs = {"bitserial_gemm": phase_kernel_vs_plain(torch, card)}
     errs.update(phase_new_kernels_vs_plain(torch, card))
     errs["wq_gemm"] = phase_wq_gemm_vs_plain(torch, card)
     errs.update(phase_mxu_vs_plain(torch, card))
+    vpu_tile_errs = phase_vpu_tiles_vs_plain(torch, card)
+    for name, err in vpu_tile_errs.items():
+        errs[name] = max(errs[name], err)
     # each path runs with every count at 0 just before it and read after it
     models, dbs, tiles, path_launches, logits = phase_main_path(torch, card)
     launches = {"bitserial_gemm": path_launches}
@@ -1364,8 +1500,8 @@ def main() -> int:
                                                    "bgemm_mxu")})
     del kept
     launches["wq_gemm"], wq_packed = phase_weight_only(torch, card)
-    timing = phase_timing(torch, card, models, dbs, tiles)
-    timing.update(phase_new_kernel_timing(torch, card, models, dbs))
+    timing = phase_timing(torch, card, rates, models, dbs, tiles)
+    timing.update(phase_new_kernel_timing(torch, card, rates, models, dbs))
     phase_fig9a(torch, card, dbs)
     phase_profile(torch, card, models, dbs)
     # the kernels line carries wq_gemm at the gate projection, batch 1

@@ -21,11 +21,16 @@ The field set is the reference's (``repro.api.policy``):
                             has no interpret mode: a CPU tensor takes a
                             kernel's plain version, a CUDA tensor the kernel.
 
-The checks follow the port's 'vpu' kernel: one CUDA thread per output
-element of a (block_m, block_n) tile, so the tile holds whole warps and at
-most 1024 threads, and its shared-memory staging of 8-bit operands fits a
-block. The 'mxu' kernel runs on the same blocks and takes every tile that
-passes them (at most 4 m16 x n8 fragments a warp, no shared memory).
+The checks keep the set of tiles the port has accepted since its first
+kernel, in both modes. What each guards now: block_m * block_n is the
+thread count of a 'mxu' block (whole warps, at most 1024), which holds at
+most 4 m16 x n8 fragments a warp at every accepted tile. The 'vpu' kernel
+launches one warp per output row and several rows a block whatever the
+tile, with no shared memory (csrc/bitserial_tile.cuh): there block_m only
+names the row tile whose artifacts a row reads. The bound on
+4 * 8 * block_w * (block_m + block_n) bytes, 8-bit operand tiles staged in
+shared memory, is the first 'vpu' design's; no kernel stages them now, and
+it stays so that a policy accepted before is accepted still, and no other.
 """
 from __future__ import annotations
 
@@ -64,14 +69,14 @@ class ExecutionPolicy:
         if threads % 32 or threads > MAX_THREADS:
             raise ValueError(
                 f"block_m * block_n must be a multiple of 32 (whole warps) "
-                f"and at most {MAX_THREADS} (one thread per output), got "
+                f"and at most {MAX_THREADS} (the threads of an 'mxu' block), got "
                 f"{self.block_m} * {self.block_n} = {threads}")
         smem = 4 * MAX_BITS * self.block_w * (self.block_m + self.block_n)
         if smem > _MAX_SMEM_BYTES:
             raise ValueError(
                 f"a ({self.block_m}, {self.block_n}, {self.block_w}) tile "
-                f"stages {smem} bytes of 8-bit operands, more than the "
-                f"{_MAX_SMEM_BYTES} a block may use")
+                f"would stage {smem} bytes of 8-bit operands, more than "
+                f"the {_MAX_SMEM_BYTES} a block may use")
 
     def replace(self, **kw) -> "ExecutionPolicy":
         """Functional update (alias for dataclasses.replace)."""

@@ -6,17 +6,18 @@
 // Replaces the TPU kernel src/repro/kernels/bgemm.py:bgemm in both compute
 // modes of _tile_product (bodies _kernel_plain, _kernel_mask,
 // _kernel_compact, the latter run at one-word K tiles for sgt). 'vpu'
-// (bgemm_launch) is the tile kernel of bitserial_tile.cuh at one plane each:
-// the same staging, the same four schedules, the ragged N edge masked, and
-// no plane loops. 'mxu' (bgemm_mxu_launch) is the tensor-core core of
+// (bgemm_launch) is the kernel of bitserial_tile.cuh at one plane each: a
+// warp a row, the same walk and warp-wide skip of zero words, the same four
+// schedules, 32 lanes over the columns, and no plane loops or shifts.
+// 'mxu' (bgemm_mxu_launch) is the tensor-core core of
 // bitserial_mma.cuh at one plane each: one b1 mma.sync m16n8k256 .and.popc
 // per 8 visited words. It is what the port's reuse=False ablation (paper
 // Fig. 9a) launches once per plane pair.
 //
 // Bound on this card: it reads M*W*4 + W*N*4 bytes and writes M*N*4, and
-// does M*N*W AND+popcount steps (fewer under the jump schedules). At the
-// GNN shapes it runs far above both: launch latency and one pair of block
-// barriers per K step dominate.
+// does N AND+popcount steps for every non-zero word of A that the schedule
+// visits. At the GNN shapes (the sparse adjacency, N = 128) both are far
+// below a launch: a call is launch latency and a few dependent loads a warp.
 //
 // Built as bitserial.cu is, into the same shared library.
 

@@ -12,10 +12,14 @@
 // its epilogue are in bitserial_tile.cuh.
 //
 // Bound on this card: the function reads s*M*W*4 + t*W*N*4 bytes (and M + N
-// floats of alpha and beta) and writes M*N*4; it does s*t*M*N*W 32-bit
-// AND+popcount steps (fewer under the jump schedules). At the GNN path's
-// shapes (N = 16..128, W <= 72) neither bound is reached: a call takes a
-// few microseconds and launch latency and the per-K-step barriers dominate.
+// floats of alpha and beta) and writes M*N*4; it does t*N AND+popcount
+// steps for every non-zero word of A's s planes that the schedule visits
+// (s*t*M*N*W when A has no zero word); the popcounts, 16 a clock on an SM
+// against 64 for the AND, set the operation side. At the adjacency GEMM of
+// the GNN path (s = 1, W = 72, ~10 % non-zero tiles) a call is launch
+// latency and a few dependent loads a warp; at the dense 8-bit feature
+// GEMMs (s = t = 8) the popcounts bound it. bitserial_tile.cuh says how the
+// 'vpu' kernel meets both.
 //
 // Two compute modes, as the reference has: 'vpu' (*_launch) runs the
 // popcounts on the CUDA cores (bitserial_tile.cuh); 'mxu' (*_mxu_launch)

@@ -31,7 +31,7 @@ import tempfile
 import torch
 
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "LAUNCHES", "reset_launches",
-           "sources", "build", "library", "launch", "kernel_device",
+           "sources", "build", "load", "library", "launch", "kernel_device",
            "check_cuda"]
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
@@ -50,8 +50,8 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def sources() -> list[pathlib.Path]:
-    return sorted(CSRC.glob("*.cu"))
+def sources(csrc: pathlib.Path = CSRC) -> list[pathlib.Path]:
+    return sorted(csrc.glob("*.cu"))
 
 
 def _nvcc() -> str:
@@ -75,22 +75,25 @@ def _run_all(cmds: list[list[str]]) -> None:
             raise RuntimeError(f"{' '.join(cmd)} failed:\n{err}")
 
 
-def build() -> pathlib.Path:
-    """Compile every ``csrc/*.cu`` into one shared library unless a library
-    of exactly these sources and flags exists; returns its path."""
+def build(csrc: pathlib.Path = CSRC,
+          build_dir: pathlib.Path = BUILD_DIR) -> pathlib.Path:
+    """Compile every ``*.cu`` of ``csrc`` into one shared library in
+    ``build_dir`` unless a library of exactly these sources and flags
+    exists; returns its path."""
     digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(CSRC.iterdir()):
+    for path in sorted(csrc.iterdir()):
         if path.suffix in (".cu", ".cuh"):
             digest.update(path.name.encode() + b"\0" + path.read_bytes())
-    out = BUILD_DIR / f"librepro_torch-{digest.hexdigest()[:12]}.so"
+    out = build_dir / f"librepro_torch-{digest.hexdigest()[:12]}.so"
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        objs = [pathlib.Path(tmp) / f"{src.stem}.o" for src in sources()]
+    srcs = sources(csrc)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        objs = [pathlib.Path(tmp) / f"{src.stem}.o" for src in srcs]
         _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-                  for src, obj in zip(sources(), objs)])
+                  for src, obj in zip(srcs, objs)])
         lib = pathlib.Path(tmp) / out.name
         _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(lib),
                    *map(str, objs)]])
@@ -102,26 +105,32 @@ def library() -> ctypes.CDLL:
     """The loaded library with every launch function's argument types set."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        # (A, B, C, [s, t,] m, w, n, block_m, block_n, kw, schedule,
-        #  occ, idx, idx_stride, cnt, steps, ...)
-        # the mode="mxu" launchers take the same arguments
-        gemm = [p, p, p, i, i, i, i, i, i, i, i, i, p, p, i, p, i]
-        for mode in ("", "_mxu"):
-            getattr(lib, f"bitserial_gemm{mode}_launch").argtypes = gemm + [p]
-            getattr(lib, f"bitserial_fused{mode}_launch").argtypes = \
-                gemm + [p, p, f, i, p]
-            getattr(lib, f"bgemm{mode}_launch").argtypes = gemm[:3] + gemm[5:] + [p]
-        # (x, scale, zero, out, m, k, words, nbits, qmax, stream)
-        lib.bitpack_launch.argtypes = [p, p, p, p, i, i, i, i, f, p]
-        # (x, w_packed, scales, out, m, n, k, group, block_m, block_n,
-        #  block_k, x_bf16, stream)
-        lib.wq_gemm_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
-        for name in LAUNCHES:
-            getattr(lib, f"{name}_launch").restype = ctypes.c_int
-        _lib = lib
+        _lib = load(build())
     return _lib
+
+
+def load(path: pathlib.Path) -> ctypes.CDLL:
+    """Load a library that ``build`` made and set the argument types of
+    every launch function."""
+    lib = ctypes.CDLL(str(path))
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    # (A, B, C, [s, t,] m, w, n, block_m, block_n, kw, schedule,
+    #  occ, idx, idx_stride, cnt, steps, ...)
+    # the mode="mxu" launchers take the same arguments
+    gemm = [p, p, p, i, i, i, i, i, i, i, i, i, p, p, i, p, i]
+    for mode in ("", "_mxu"):
+        getattr(lib, f"bitserial_gemm{mode}_launch").argtypes = gemm + [p]
+        getattr(lib, f"bitserial_fused{mode}_launch").argtypes = \
+            gemm + [p, p, f, i, p]
+        getattr(lib, f"bgemm{mode}_launch").argtypes = gemm[:3] + gemm[5:] + [p]
+    # (x, scale, zero, out, m, k, words, nbits, qmax, stream)
+    lib.bitpack_launch.argtypes = [p, p, p, p, i, i, i, i, f, p]
+    # (x, w_packed, scales, out, m, n, k, group, block_m, block_n,
+    #  block_k, x_bf16, stream)
+    lib.wq_gemm_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
+    for name in LAUNCHES:
+        getattr(lib, f"{name}_launch").restype = ctypes.c_int
+    return lib
 
 
 def launch(name: str, out, args: tuple, device):

@@ -42,7 +42,10 @@ __all__ = ["bitserial_gemm", "bitserial_gemm_plain", "bitserial_fused",
            "LAUNCHES", "reset_launches", "MAX_THREADS", "MAX_BITS",
            "MAX_OUT_BITS"]
 
-MAX_THREADS = 1024      # one thread per output element of a (block_m, block_n) tile
+# block_m * block_n: the threads of a mode="mxu" block (whole warps, at most
+# 1024). The 'vpu' kernel launches a warp a row whatever the tile, and takes
+# the same tiles, so that a policy means the same in either mode.
+MAX_THREADS = 1024
 MAX_BITS = 8            # p + q < 32 keeps the kernel's shift defined
 MAX_OUT_BITS = 30       # 2^out_bits - 1 stays an int32 after float rounding
 

@@ -545,3 +545,130 @@ def test_tensor_api_at_mxu_on_card(cuda_device):
     assert LAUNCHES["bgemm"] == before["bgemm"]
     torch.cuda.synchronize()
     assert torch.equal(no_reuse, bt.bitmm2int(ta, tx))
+
+
+# ------------------------------- mode="vpu" at every kind of tile the policy takes
+
+# the 'vpu' kernel launches a warp a row whatever the tile; the tile still
+# sets the grid of the jump artifacts and the padding, so each is checked
+VPU_TILES = MXU_TILES + [(1, 1024, 4), (1024, 1, 1)]
+# ragged N: not a multiple of block_n, and below 32
+VPU_SHAPES = [(61, 1000, 70), (37, 333, 5), (20, 1100, 16)]
+
+
+def _vpu_policy(tile):
+    return _mxu_policy(tile).replace(mode="vpu")
+
+
+@pytest.mark.parametrize("schedule", ["none", "mask", "compact", "sgt"])
+@pytest.mark.parametrize("tile", VPU_TILES)
+@pytest.mark.parametrize("s,t", [(1, 1), (1, 8), (3, 5), (8, 8)])
+def test_vpu_kernel_at_every_tile_is_exact_on_card(cuda_device, schedule, tile, s, t):
+    pol = _vpu_policy(tile)
+    rng = np.random.default_rng(s * 8 + t)
+    for (m, k, n), pattern in itertools.product(
+            VPU_SHAPES, ("random", "block_diag", "zero")):
+        a = _operand(rng, m, k, s, pattern)
+        b = rng.integers(0, 1 << t, (k, n)).astype(np.int32)
+        ca, cb = _on(cuda_device, bitops.pack_a(torch.as_tensor(a), s),
+                     bitops.pack_b(torch.as_tensor(b), t))
+        before = dict(LAUNCHES)
+        got = ops.bitserial_gemm(ca, cb, policy=pol,
+                                 **_tile_jump_kwargs(schedule, ca, pol))
+        assert LAUNCHES["bitserial_gemm"] == before["bitserial_gemm"] + 1
+        assert LAUNCHES["bitserial_gemm_mxu"] == before["bitserial_gemm_mxu"]
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(got.cpu().numpy(), a.astype(np.int64) @ b,
+                                      err_msg=f"{(m, k, n)} {pattern}")
+
+
+@pytest.mark.parametrize("schedule", ["none", "mask", "compact", "sgt"])
+@pytest.mark.parametrize("tile", VPU_TILES)
+@pytest.mark.parametrize("out_bits,relu", [(8, True), (4, False), (2, True)])
+def test_vpu_fused_kernel_at_every_tile_matches_plain_on_card(
+        cuda_device, schedule, tile, out_bits, relu):
+    pol = _vpu_policy(tile)
+    rng = np.random.default_rng(out_bits)
+    for (m, k, n), (s, t), pattern in itertools.product(
+            VPU_SHAPES, ((2, 3), (8, 8)), ("random", "zero")):
+        a = _operand(rng, m, k, s, pattern)
+        b = rng.integers(0, 1 << t, (k, n)).astype(np.int32)
+        exact = torch.as_tensor(a.astype(np.int64) @ b)
+        top = max(int(exact.max()), 1)
+        alpha = torch.as_tensor((rng.random((m, 1)) * 1.5 * (1 << out_bits) / top)
+                                .astype(np.float32))
+        beta = torch.as_tensor(((rng.random((1, n)) - 0.5) * (1 << out_bits))
+                               .astype(np.float32))
+        ca, cb, cal, cbe = _on(cuda_device, bitops.pack_a(torch.as_tensor(a), s),
+                               bitops.pack_b(torch.as_tensor(b), t), alpha, beta)
+        before = LAUNCHES["bitserial_fused"]
+        got = ops.bitserial_fused(ca, cb, cal, cbe, out_bits=out_bits, relu=relu,
+                                  policy=pol, **_tile_jump_kwargs(schedule, ca, pol))
+        assert LAUNCHES["bitserial_fused"] == before + 1
+        want = bitserial.fused_epilogue(exact, alpha, beta, out_bits, relu)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), ((m, k, n), (s, t), pattern)
+
+
+@pytest.mark.parametrize("schedule", ["none", "mask", "compact", "sgt"])
+@pytest.mark.parametrize("pattern", ["random", "block_diag", "zero"])
+@pytest.mark.parametrize("tile", VPU_TILES)
+def test_vpu_bgemm_at_every_tile_is_exact_on_card(cuda_device, schedule, pattern,
+                                                  tile):
+    pol = _vpu_policy(tile)
+    rng = np.random.default_rng(len(pattern))
+    for m, k, n in VPU_SHAPES + [(40, 2304, 128)]:
+        a = _operand(rng, m, k, 1, pattern)
+        b = rng.integers(0, 2, (k, n)).astype(np.int32)
+        ca, cb = _on(cuda_device, bitops.pack_a(torch.as_tensor(a), 1)[0],
+                     bitops.pack_b(torch.as_tensor(b), 1)[0])
+        before = dict(LAUNCHES)
+        got = ops.bgemm(ca, cb, policy=pol, **_tile_jump_kwargs(schedule, ca, pol))
+        assert LAUNCHES["bgemm"] == before["bgemm"] + 1
+        assert LAUNCHES["bgemm_mxu"] == before["bgemm_mxu"]
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(got.cpu().numpy(), a.astype(np.int64) @ b,
+                                      err_msg=f"{(m, k, n)}")
+
+
+@pytest.mark.parametrize("tile", [(8, 32, 4), (1, 1024, 4), (1024, 1, 1)])
+@pytest.mark.parametrize("s,t", [(1, 1), (1, 8), (8, 8), (3, 5)])
+def test_vpu_one_hot_words(cuda_device, tile, s, t):
+    """A with one set bit a row, at every (plane < s, word < 40, bit 0 or
+    31), against a random B; and a random A against B with one set bit a
+    column, at every (plane < t, word, bit). 40 words cross the 'vpu'
+    kernel's 32-word chunks and t * 80 columns its column blocks, so a wrong
+    lane-to-word, plane-group or column mapping cannot pass. Every product
+    is exact: bitserial_gemm and the identity-epilogue bitserial_fused in
+    the four schedules, and bgemm at s = t = 1."""
+    pol = _vpu_policy(tile)
+    words = 40
+    k = 32 * words
+    rng = np.random.default_rng(s * 16 + t)
+    a_hot = np.zeros((s * words * 2, k), dtype=np.int64)
+    for r, (p, wd, bit) in enumerate(itertools.product(range(s), range(words),
+                                                       (0, 31))):
+        a_hot[r, 32 * wd + bit] = 1 << p
+    b_hot = np.zeros((k, t * words * 2), dtype=np.int64)
+    for col, (q, wd, bit) in enumerate(itertools.product(range(t), range(words),
+                                                         (0, 31))):
+        b_hot[32 * wd + bit, col] = 1 << q
+    pairs = ((a_hot, rng.integers(0, 1 << t, (k, 40))),
+             (rng.integers(0, 1 << s, (64, k)), b_hot))
+    for a, b in pairs:
+        exact = a @ b
+        ca, cb = _on(cuda_device, bitops.pack_a(torch.as_tensor(a, dtype=torch.int32), s),
+                     bitops.pack_b(torch.as_tensor(b, dtype=torch.int32), t))
+        one = torch.ones((a.shape[0], 1), device=cuda_device)
+        zero = torch.zeros((1, b.shape[1]), device=cuda_device)
+        for schedule in ("none", "mask", "compact", "sgt"):
+            kw = _tile_jump_kwargs(schedule, ca, pol)
+            got = [ops.bitserial_gemm(ca, cb, policy=pol, **kw),
+                   ops.bitserial_fused(ca, cb, one, zero, out_bits=30, relu=False,
+                                       policy=pol, **kw)]
+            if s == t == 1:
+                got.append(ops.bgemm(ca[0], cb[0], policy=pol, **kw))
+            torch.cuda.synchronize()
+            for out in got:
+                np.testing.assert_array_equal(out.cpu().numpy(), exact,
+                                              err_msg=schedule)

@@ -1,7 +1,7 @@
 """The port's package boundary and contracts.
 
-- No module of ``src/repro_torch`` and not ``chip_smoke.py`` imports JAX or
-  the JAX package ``repro``.
+- No module of ``src/repro_torch``, and neither ``chip_smoke.py`` nor
+  ``compare_kernels.py``, imports JAX or the JAX package ``repro``.
 - Entry points run on the card unless the caller asks for the CPU: without
   a card they raise.
 - ``resolve`` raises instead of falling back to another engine.
@@ -41,8 +41,8 @@ def _one_torch_thread():
 
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+PACKAGE_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+PORT_FILES = PACKAGE_FILES + [ROOT / "chip_smoke.py", ROOT / "compare_kernels.py"]
 FORBIDDEN = {"jax", "jaxlib", "repro"}
 
 
@@ -63,7 +63,7 @@ def test_port_file_imports_neither_jax_nor_reference(path):
 
 def test_port_import_leaves_jax_unloaded():
     mods = [".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
-            .removesuffix(".__init__") for p in PORT_FILES[:-1]]
+            .removesuffix(".__init__") for p in PACKAGE_FILES]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
             + "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             + f"{sorted(FORBIDDEN)!r}))\n"
