@@ -22,12 +22,15 @@ without printing a result:
      tensor-core kernels bitserial_gemm_mxu (four schedules),
      bitserial_fused_mxu and bgemm_mxu, each equal to its plain version
      and to the 'vpu' kernel at plane pairs (1,1)..(8,8), patterns random,
-     zero and block-diagonal, and tiles (8,32,4), (1,32,1), (16,8,8) and
-     (32,32,9); and one-hot checks that pin the mma fragment layout. Then
-     the 'vpu' kernels again at those tiles and at (1,1024,4) and
-     (1024,1,1), each equal to its plain version, and one-hot words (one
-     set bit a row of A, or a column of B, at every plane, word and end
-     bit, across the kernel's 32-word chunks and column blocks).
+     zero and block-diagonal, and tiles (8,32,4), (1,32,1), (16,8,8),
+     (32,32,9), (1,1024,4) and (1024,1,1); one-hot checks that pin the mma
+     fragment layout; one-hot words (one set bit a row of A, or a column
+     of B, at every plane, word and end bit); and the kernel's own paths:
+     short walks of 1..5 words (plane pairs sharing an mma), all-zero A,
+     one non-zero word a 16-row strip, B past a staged column block or K
+     window, row tiles below a strip. Then the 'vpu' kernels again at
+     those tiles, each equal to its plain version, and one-hot words
+     across the kernel's 32-word chunks and column blocks.
   3. main path — ogbn-arxiv at full scale, partitioned into 1500 parts
      (Cluster-GCN's setting), batches of 20 parts; the first 8 batches
      are served through forward_qgtc for qgtc-gcn and qgtc-gin at 8, 4
@@ -60,7 +63,8 @@ without printing a result:
      kernel in turns) beside its plain version, its
      bound, and one PyTorch call of the same function where there is one
      (a float32 torch.matmul on the unpacked values, exact: every sum stays
-     below 2**24), as the library yardstick, which the port never calls.
+     below 2**24), as the library yardstick, which the port never calls;
+     and the launch floor, an empty kernel under the same CUDA graph.
   7. fig9a — the adjacency product with tile reuse (one bitserial_gemm)
      and without (one bgemm per plane pair), CUDA events, at 2/4/8 bits,
      for batch 0's adjacency and for the paper's all-ones A of its size.
@@ -127,13 +131,15 @@ KERNEL_SOURCES = {
                   "src/repro/kernels/bgemm.py:112"),
 }
 MXU_KERNELS = ("bitserial_gemm_mxu", "bitserial_fused_mxu", "bgemm_mxu")
-# mode="mxu" checks: tiles (block_m, block_n, block_w), the default first,
-# down to one row and to one fragment, and a K tile of 9 words
-MXU_TILES = ((8, 32, 4), (1, 32, 1), (16, 8, 8), (32, 32, 9))
+# checks of both modes at every kind of tile (block_m, block_n, block_w) the
+# policy accepts: the default first, down to one row and to one fragment, a
+# K tile of 9 words, and the two extremes, 1 x 1024 and 1024 x 1
+TILES = ((8, 32, 4), (1, 32, 1), (16, 8, 8), (32, 32, 9), (1, 1024, 4),
+         (1024, 1, 1))
 MXU_EPILOGUES = ((8, True), (4, False), (2, True))
-# 'vpu' checks at the non-default tiles: those of mxu, and the two extreme
-# tiles the policy accepts, one row by 1024 columns and 1024 rows by one
-VPU_TILES = MXU_TILES + ((1, 1024, 4), (1024, 1, 1))
+# one-hot words at these tiles and plane pairs, in both modes
+ONE_HOT_TILES = ((8, 32, 4), (1, 1024, 4), (1024, 1, 1))
+ONE_HOT_ST = ((1, 1), (1, 8), (8, 8), (3, 5))
 # bit-serial GEMMs of one forward_qgtc: two per GCN layer, three per GIN layer
 PER_FORWARD = {"gcn": 6, "gin": 9}
 # wq_gemm: the reference test's (M, K, N) and a ragged one, group sizes,
@@ -617,7 +623,7 @@ def _one_hot_words(torch, ops, pol, s, t, words=40) -> int:
 
 def phase_vpu_tiles_vs_plain(torch, card):
     """The 'vpu' kernels (bitserial_gemm in the four schedules,
-    bitserial_fused, bgemm) against their plain versions at every VPU_TILES
+    bitserial_fused, bgemm) against their plain versions at every TILES
     tile: the launch no longer follows the tile, so each tile's artifacts
     and ragged edges are checked apart; then one-hot words at three tiles.
     Returns {kernel: max_abs_err}."""
@@ -625,14 +631,13 @@ def phase_vpu_tiles_vs_plain(torch, card):
     from repro_torch.kernels import ops
 
     errs, checks = _tiles_vs_plain(torch, torch.Generator().manual_seed(12),
-                                   "vpu", VPU_TILES)
+                                   "vpu", TILES)
     one_hot = sum(_one_hot_words(torch, ops, api.ExecutionPolicy(
         block_m=bm, block_n=bn, block_w=bw), s, t)
-        for bm, bn, bw in ((8, 32, 4), (1, 1024, 4), (1024, 1, 1))
-        for s, t in ((1, 1), (1, 8), (8, 8), (3, 5)))
+        for bm, bn, bw in ONE_HOT_TILES for s, t in ONE_HOT_ST)
     emit(phase="kernel_vs_plain", mode="vpu", checks=checks,
          one_hot_word_checks=one_hot, schedules=list(SCHEDULES),
-         st_pairs=[list(p) for p in ST_PAIRS], tiles=[list(x) for x in VPU_TILES],
+         st_pairs=[list(p) for p in ST_PAIRS], tiles=[list(x) for x in TILES],
          epilogues=[list(e) for e in MXU_EPILOGUES],
          cases=[[kind, *shape, *st] for kind, (shape, st) in _tile_cases()],
          patterns=["random", "zero", "block_diag"], equal_plain=True,
@@ -640,23 +645,132 @@ def phase_vpu_tiles_vs_plain(torch, card):
     return errs
 
 
+def _mxu_exact(torch, ops, pol, a, b, s, t, schedule, what) -> int:
+    """bitserial_gemm, the identity-epilogue bitserial_fused and (at one bit)
+    bgemm at 'mxu' on int64 CPU values ``a`` (M, K) and ``b`` (K, N) in one
+    schedule: each equal to the exact product and to the 'vpu' kernel.
+    Returns the number of checks."""
+    from repro_torch.core import bitops
+
+    exact = (a @ b).to(torch.int32).to(DEVICE)
+    ap = bitops.pack_a(a.to(torch.int32), s).to(DEVICE)
+    bp = bitops.pack_b(b.to(torch.int32), t).to(DEVICE)
+    a_pad = bitops.pad_to(bitops.pad_to(ap, 1, pol.block_m), 2, pol.block_w)
+    wrap_kw = _schedules(ap, a_pad, pol)[schedule][0]
+    one = torch.ones((a.shape[0], 1), device=DEVICE)
+    zero = torch.zeros((1, b.shape[1]), device=DEVICE)
+    checks = 0
+    for p in (pol, pol.replace(mode="vpu")):
+        outs = [ops.bitserial_gemm(ap, bp, policy=p, **wrap_kw),
+                ops.bitserial_fused(ap, bp, one, zero, out_bits=30, relu=False,
+                                    policy=p, **wrap_kw)]
+        if s == t == 1:
+            outs.append(ops.bgemm(ap[0], bp[0], policy=p, **wrap_kw))
+        for out in outs:
+            _max_err(torch, out, exact, f"{p.mode} {what} s={s} t={t} {schedule} "
+                                        f"tile={pol.block_m, pol.block_n, pol.block_w}")
+            checks += 1
+    return checks
+
+
+def _mxu_new_paths(torch, ops) -> dict:
+    """The paths of the 'mxu' kernel that the tile checks do not aim at,
+    each exact and equal to the 'vpu' kernel: short walks of 1..5 words
+    (same-weight plane pairs sharing an mma over 1, 2 or 4 live words; 5
+    words take the long walk) with random, all-zero and one-word A; one
+    non-zero word per 16-row strip in a 72-word K (the zero-run skip); B past
+    one staged column block and past one K window; row tiles below a strip
+    in the mask and list schedules. Returns {case: checks}."""
+    from repro_torch import api
+
+    def policy(tile):
+        bm, bn, bw = tile
+        return api.ExecutionPolicy(block_m=bm, block_n=bn, block_w=bw, mode="mxu")
+
+    gen = torch.Generator().manual_seed(13)
+
+    def ints(shape, bits):
+        return torch.randint(0, 1 << bits, shape, generator=gen, dtype=torch.int64)
+
+    checks = dict.fromkeys(("short_walks", "zero_runs", "staged_windows",
+                            "row_tiles_below_a_strip"), 0)
+    for tile, (s, t), words, pattern in itertools.product(
+            ((8, 32, 1), (16, 8, 8)), ((8, 8), (3, 5), (1, 8)), range(1, 6),
+            ("random", "zero", "one_word")):
+        k = 32 * words - 7
+        a, b = ints((37, k), s), ints((k, 40), t)
+        if pattern == "zero":
+            a.zero_()
+        elif pattern == "one_word":
+            keep = 32 * int(torch.randint(0, words, (1,), generator=gen))
+            a[:, :keep] = 0
+            a[:, keep + 32:] = 0
+        for schedule in SCHEDULES:
+            checks["short_walks"] += _mxu_exact(
+                torch, ops, policy(tile), a, b, s, t, schedule,
+                f"short walk words={words} {pattern}")
+    for s, t in ((1, 8), (1, 1), (3, 5)):
+        m, k = 100, 32 * 72
+        a = torch.zeros((m, k), dtype=torch.int64)
+        for r0 in range(0, m, 16):
+            row = r0 + int(torch.randint(0, min(16, m - r0), (1,), generator=gen))
+            word = int(torch.randint(0, 72, (1,), generator=gen))
+            a[row, 32 * word:32 * word + 32] = ints((32,), s)
+        b = ints((k, 16), t)
+        for schedule in SCHEDULES:
+            checks["zero_runs"] += _mxu_exact(
+                torch, ops, policy((8, 32, 4)), a, b, s, t, schedule,
+                "one non-zero word a strip")
+    for m, k, n, s, t in ((61, 1000, 70, 2, 3), (40, 2304, 130, 1, 1),
+                          (40, 2304, 64, 1, 8), (24, 12800, 9, 1, 8),
+                          (18, 100000, 8, 1, 1)):
+        a, b = ints((m, k), s), ints((k, n), t)
+        a[:, k // 3:] *= (torch.rand((m, k - k // 3), generator=gen) < 0.05)
+        for schedule in SCHEDULES:
+            checks["staged_windows"] += _mxu_exact(
+                torch, ops, policy((8, 32, 4)), a, b, s, t, schedule,
+                f"staged window {(m, k, n)}")
+    for tile in ((1, 32, 1), (2, 16, 3), (4, 8, 5), (8, 32, 4), (12, 8, 4),
+                 (24, 4, 2)):
+        for s, t in ((3, 5), (1, 8), (1, 1)):
+            m, k = 72, 32 * 40
+            a = ints((m, k), s)
+            for r in range(m):  # each row keeps a band of its own
+                lo = (r * 7) % 30 * 32
+                a[r, :lo] = 0
+                a[r, lo + 5 * 32:] = 0
+            a[::5] = 0
+            b = ints((k, 24), t)
+            for schedule in ("mask", "compact", "sgt"):
+                checks["row_tiles_below_a_strip"] += _mxu_exact(
+                    torch, ops, policy(tile), a, b, s, t, schedule,
+                    "row tiles below a strip")
+    return checks
+
+
 def phase_mxu_vs_plain(torch, card):
     """The mode="mxu" kernels (bitserial_gemm in the four schedules,
     bitserial_fused, bgemm) against their plain versions and against the
-    'vpu' kernels on the same CUDA tensors, at every MXU_TILES tile; then
-    the one-hot fragment checks. Returns {kernel: max_abs_err}."""
+    'vpu' kernels on the same CUDA tensors, at every TILES tile; then the
+    one-hot fragment checks, one-hot words at three tiles, and the kernel's
+    own paths (_mxu_new_paths). Returns {kernel: max_abs_err}."""
     from repro_torch import api
     from repro_torch.kernels import ops
 
     errs, checks = _tiles_vs_plain(torch, torch.Generator().manual_seed(9),
-                                   "mxu", MXU_TILES)
+                                   "mxu", TILES)
     one_hot = sum(_one_hot_checks(torch, ops, api.ExecutionPolicy(
         block_m=bm, block_n=bn, block_w=bw, mode="mxu"))
         for bm, bn, bw in ((16, 8, 8), (8, 32, 4)))
+    one_hot_words = sum(_one_hot_words(torch, ops, api.ExecutionPolicy(
+        block_m=bm, block_n=bn, block_w=bw, mode="mxu"), s, t)
+        for bm, bn, bw in ONE_HOT_TILES for s, t in ONE_HOT_ST)
+    paths = _mxu_new_paths(torch, ops)
     cases = _tile_cases()
     emit(phase="kernel_vs_plain", mode="mxu", checks=checks,
-         one_hot_checks=one_hot, schedules=list(SCHEDULES),
-         st_pairs=[list(p) for p in ST_PAIRS], tiles=[list(x) for x in MXU_TILES],
+         one_hot_checks=one_hot, one_hot_word_checks=one_hot_words,
+         path_checks=paths, schedules=list(SCHEDULES),
+         st_pairs=[list(p) for p in ST_PAIRS], tiles=[list(x) for x in TILES],
          epilogues=[list(e) for e in MXU_EPILOGUES],
          gemm_shapes=[[*shape, *st] for kind, (shape, st) in cases if kind == "gemm"],
          bgemm_shapes=[list(shape) for kind, (shape, _) in cases if kind == "bgemm"],
@@ -996,6 +1110,11 @@ def phase_timing(torch, card, rates, models, dbs, tiles):
                  median_ms=statistics.median(per_batch), per_batch_ms=per_batch,
                  card=card)
 
+    # the launch floor the kernel times are read against: an empty kernel
+    # (torch.cuda._sleep(0)) under the same CUDA-graph harness
+    floor_ms = graph_ms(torch, lambda: torch.cuda._sleep(0))
+    emit(phase="launch_floor", graph_ms=floor_ms, kernel="torch.cuda._sleep(0)",
+         card=card)
     # the kernel alone at the adjacency GEMM of the first batch: 1-bit
     # adjacency x 8-bit GCN hidden features (N = 16)
     db, tl = dbs[0], tiles[0]
@@ -1054,15 +1173,22 @@ def phase_timing(torch, card, rates, models, dbs, tiles):
         "mxu": lambda: ops.bitserial_gemm(xp, wp, policy=mxu)})
     ms_plain = time_ms(torch, lambda: bitserial.bitserial_gemm_plain(
         xp, wp, block_m=pol.block_m, block_w=pol.block_w), reps=3)
-    x_f, w_f = xq.double().to(DEVICE), wq.double().to(DEVICE)
-    ms_lib = graph_ms(torch, lambda: torch.matmul(x_f, w_f))
+    # float32 is exact here: every sum is at most 255 * 255 * 128 < 2**24
+    x32, w32 = xq.float().to(DEVICE), wq.float().to(DEVICE)
+    x64, w64 = xq.double().to(DEVICE), wq.double().to(DEVICE)
+    if not torch.equal(torch.matmul(x32, w32).to(torch.int32),
+                       ops.bitserial_gemm(xp, wp, policy=mxu)):
+        raise AssertionError("float32 matmul yardstick is not exact at GIN's GEMM")
+    ms_lib = graph_ms(torch, lambda: torch.matmul(x32, w32))
+    ms_lib64 = graph_ms(torch, lambda: torch.matmul(x64, w64))
     for name, mode_ms, (b_ms, b_by) in (
             ("bitserial_gemm", ms["vpu"], bound(xp, 8, 64, rates)),
             ("bitserial_gemm_mxu", ms["mxu"],
              bound(xp, 8, 64, rates, tensor_cores=True))):
         emit(phase="kernel_timing", kernel=name, schedule="dense",
              shape=list(xp.shape) + [8, 64], ms=mode_ms, plain_ms=ms_plain,
-             library_ms_float64=ms_lib, bound_ms=b_ms, bound_by=b_by, card=card)
+             library_ms=ms_lib, library_ms_float64=ms_lib64, bound_ms=b_ms,
+             bound_by=b_by, launch_floor_ms=floor_ms, card=card)
     return out
 
 

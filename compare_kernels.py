@@ -16,12 +16,16 @@ interface is shared), so only the kernels' code differs.
 Cases: the rows of the kernel table in PERF.md §6 at their main-path
 shapes, on batch 0 of ogbn-arxiv at full scale (the adjacency GEMM in the
 four schedules, the fused epilogue, bgemm, GIN's widest feature GEMM), in
-both compute modes, plus bgemm on the all-ones adjacency of fig9a. Each
-library's result must equal this checkout's plain version, else the script
-exits non-zero. Then each library runs under a CUDA graph of 50 launches
+both compute modes, plus bgemm on the all-ones adjacency of fig9a, and
+wq_gemm at codeqwen1.5-7b's gate projection, batch 1 (the weight L2-resident:
+one copy). Each library's integer result must equal this checkout's plain
+version, and wq_gemm's must lie within the float32 bound around a float64
+product and equal this checkout's kernel bit for bit, else the script exits
+non-zero. Then each library runs under a CUDA graph of 50 launches
 (``chip_smoke.graph_ms``) in turns: this, OTHER..., OTHER... reversed,
 this, each time the mean of its two turns. One JSON line a case, after the
-card's name and power limit.
+card's name and power limit and the launch floor (an empty kernel,
+``torch.cuda._sleep(0)``, under the same graph).
 """
 from __future__ import annotations
 
@@ -128,6 +132,26 @@ def _cases(torch):
         plane)
     # GIN's widest feature GEMM: 8-bit (M, 128) @ 8-bit (128, 64)
     add("gin 8x8 N=64", "bitserial_gemm", xp, bitops.pack_b(ints((128, 64), 8), 8))
+    # wq_gemm at the gate projection, batch 1, with ops.wq_gemm's tiles
+    from repro_torch.kernels import wqmm
+
+    k, n = chip_smoke.D_MODEL, chip_smoke.D_FF
+    w = (torch.randn((k, n), generator=gen) * 0.02).to(DEVICE)
+    wp, sc = wqmm.pack_w4(w, 32)
+    x = torch.randn((1, k), generator=gen).to(DEVICE)
+    out = torch.empty((1, n), dtype=torch.float32, device=DEVICE)
+    w64 = wqmm.unpack_w4(wp, sc, 32).double()
+    keep = {"x": x, "wp": wp, "sc": sc}
+
+    def within_bound(got, x=x, w64=w64):
+        """The float32 dot-product bound around the float64 product."""
+        exact = x.double() @ w64
+        err = (got.double() - exact).abs()
+        return bool((err <= k * 2.0 ** -24 * (x.double().abs() @ w64.abs())).all())
+
+    cases.append(("wq_gemm wg batch 1", "wq_gemm", out,
+                  (x.data_ptr(), wp.data_ptr(), sc.data_ptr(), out.data_ptr(), 1,
+                   n, k, 32, 8, 256, 128, 0), within_bound, keep))
     return cases
 
 
@@ -146,6 +170,8 @@ def main(argv) -> int:
     libs = _libraries(argv)
     labels = list(libs)
     order = labels + labels[::-1]
+    print(json.dumps({"launch_floor_ms": chip_smoke.graph_ms(
+        torch, lambda: torch.cuda._sleep(0)), "card": card}), flush=True)
     for case, name, out, args, want, _keep in _cases(torch):
 
         def run(lib, name=name, args=args):
@@ -154,11 +180,17 @@ def main(argv) -> int:
             if err:
                 raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
+        first = None
         for label, lib in libs.items():
             out.fill_(-1)
             run(lib)
             torch.cuda.synchronize()
-            if not torch.equal(out, want):
+            if callable(want):  # a float product: the bound, and bit for bit
+                first = out.clone() if first is None else first
+                if not (want(out) and torch.equal(out, first)):
+                    raise AssertionError(f"{case} {name}: {label} off the bound "
+                                         f"or != this checkout's kernel")
+            elif not torch.equal(out, want):
                 raise AssertionError(f"{case} {name}: {label} != plain")
         turns = {label: [] for label in labels}
         for label in order:

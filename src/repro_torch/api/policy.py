@@ -22,15 +22,15 @@ The field set is the reference's (``repro.api.policy``):
                             kernel's plain version, a CUDA tensor the kernel.
 
 The checks keep the set of tiles the port has accepted since its first
-kernel, in both modes. What each guards now: block_m * block_n is the
-thread count of a 'mxu' block (whole warps, at most 1024), which holds at
-most 4 m16 x n8 fragments a warp at every accepted tile. The 'vpu' kernel
-launches one warp per output row and several rows a block whatever the
-tile, with no shared memory (csrc/bitserial_tile.cuh): there block_m only
-names the row tile whose artifacts a row reads. The bound on
-4 * 8 * block_w * (block_m + block_n) bytes, 8-bit operand tiles staged in
-shared memory, is the first 'vpu' design's; no kernel stages them now, and
-it stays so that a policy accepted before is accepted still, and no other.
+kernel, in both modes; neither kernel's launch follows the tile any more.
+The 'vpu' kernel launches a warp per output row (csrc/bitserial_tile.cuh),
+the 'mxu' kernel a warp per 16-row strip of up to 8 columns, 32 at one bit
+(csrc/bitserial_mma.cuh); in both, block_m only names the row tile whose
+artifacts a row reads, and block_n shapes nothing. The bounds on
+block_m * block_n (whole warps, at most 1024: the first kernels' thread
+count) and on 4 * 8 * block_w * (block_m + block_n) bytes (8-bit operand
+tiles the first 'vpu' design staged in shared memory) stay so that a
+policy accepted before is accepted still, and no other.
 """
 from __future__ import annotations
 
@@ -69,7 +69,7 @@ class ExecutionPolicy:
         if threads % 32 or threads > MAX_THREADS:
             raise ValueError(
                 f"block_m * block_n must be a multiple of 32 (whole warps) "
-                f"and at most {MAX_THREADS} (the threads of an 'mxu' block), got "
+                f"and at most {MAX_THREADS}, got "
                 f"{self.block_m} * {self.block_n} = {threads}")
         smem = 4 * MAX_BITS * self.block_w * (self.block_m + self.block_n)
         if smem > _MAX_SMEM_BYTES:

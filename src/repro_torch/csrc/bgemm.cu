@@ -10,9 +10,11 @@
 // warp a row, the same walk and warp-wide skip of zero words, the same four
 // schedules, 32 lanes over the columns, and no plane loops or shifts.
 // 'mxu' (bgemm_mxu_launch) is the tensor-core core of
-// bitserial_mma.cuh at one plane each: one b1 mma.sync m16n8k256 .and.popc
-// per 8 visited words. It is what the port's reuse=False ablation (paper
-// Fig. 9a) launches once per plane pair.
+// bitserial_mma.cuh at one plane each: a warp a 16-row strip and up to 32
+// columns, B staged in shared memory, A's runs of 8 words copied ahead by
+// cp.async, one b1 mma.sync m16n8k256 .and.popc a fragment for each run
+// that is not zero in every row, accumulated in place. It is what the
+// port's reuse=False ablation (paper Fig. 9a) launches once per plane pair.
 //
 // Bound on this card: it reads M*W*4 + W*N*4 bytes and writes M*N*4, and
 // does N AND+popcount steps for every non-zero word of A that the schedule

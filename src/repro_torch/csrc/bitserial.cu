@@ -24,7 +24,9 @@
 // Two compute modes, as the reference has: 'vpu' (*_launch) runs the
 // popcounts on the CUDA cores (bitserial_tile.cuh); 'mxu' (*_mxu_launch)
 // runs the same schedules on the tensor cores with the b1 mma.sync
-// m16n8k256 .and.popc (bitserial_mma.cuh). Both return the same int32.
+// m16n8k256 .and.popc, a warp a 16-row strip, with same-weight plane pairs
+// sharing an mma where K is at most 128 bits (bitserial_mma.cuh). Both
+// return the same int32.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -Xcompiler -fPIC, linked with the other csrc/*.cu into one

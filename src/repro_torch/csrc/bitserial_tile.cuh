@@ -86,19 +86,23 @@ struct Epilogue {
   int relu;
 };
 
+// The §4.5 epilogue of an int32 whose row scales by `alpha` and whose
+// column shifts by `beta`, rounded twice as the reference does.
+__device__ __forceinline__ int32_t fused_value(int32_t out, float alpha,
+                                               float beta,
+                                               const Epilogue& epi) {
+  float y = __fadd_rn(__fmul_rn(__int2float_rn(out), alpha), beta);
+  if (epi.relu) y = fmaxf(y, 0.f);
+  return static_cast<int32_t>(fminf(fmaxf(floorf(y), 0.f), epi.qmax));
+}
+
 // The int32 the kernels store for an accumulator: itself, or under kFused
-// the §4.5 epilogue at (row, col), rounded twice as the reference does.
+// the §4.5 epilogue at (row, col).
 template <bool kFused>
 __device__ __forceinline__ int32_t tile_output(uint32_t acc, int row, int col,
                                                const Epilogue& epi) {
-  int32_t out = static_cast<int32_t>(acc);
-  if (kFused) {
-    float y = __fadd_rn(__fmul_rn(__int2float_rn(out), epi.alpha[row]),
-                        epi.beta[col]);
-    if (epi.relu) y = fmaxf(y, 0.f);
-    out = static_cast<int32_t>(fminf(fmaxf(floorf(y), 0.f), epi.qmax));
-  }
-  return out;
+  const int32_t out = static_cast<int32_t>(acc);
+  return kFused ? fused_value(out, epi.alpha[row], epi.beta[col], epi) : out;
 }
 
 constexpr int kRowsPerBlock = 4;  // warps a block, one row each

@@ -42,9 +42,11 @@ __all__ = ["bitserial_gemm", "bitserial_gemm_plain", "bitserial_fused",
            "LAUNCHES", "reset_launches", "MAX_THREADS", "MAX_BITS",
            "MAX_OUT_BITS"]
 
-# block_m * block_n: the threads of a mode="mxu" block (whole warps, at most
-# 1024). The 'vpu' kernel launches a warp a row whatever the tile, and takes
-# the same tiles, so that a policy means the same in either mode.
+# block_m * block_n must be whole warps and at most this: the bound of the
+# first kernels, which ran a block of block_m * block_n threads. Neither
+# kernel's launch follows the tile now ('vpu' a warp a row, 'mxu' a warp a
+# 16-row strip); the bound stays so that the policies accepted before are
+# accepted still, and no others, in either mode.
 MAX_THREADS = 1024
 MAX_BITS = 8            # p + q < 32 keeps the kernel's shift defined
 MAX_OUT_BITS = 30       # 2^out_bits - 1 stays an int32 after float rounding

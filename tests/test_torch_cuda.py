@@ -361,7 +361,10 @@ def test_wq_linear_on_card_is_a_float_product(cuda_device):
 
 # ------------------------------------------------ mode="mxu": the tensor cores
 
-MXU_TILES = [(8, 32, 4), (1, 32, 1), (16, 8, 8), (32, 32, 9)]
+# every kind of tile the policy accepts: the default, one row, one fragment,
+# a K tile of 9 words, and the two extremes, 1 x 1024 and 1024 x 1
+MXU_TILES = [(8, 32, 4), (1, 32, 1), (16, 8, 8), (32, 32, 9), (1, 1024, 4),
+             (1024, 1, 1)]
 
 
 def _mxu_policy(tile):
@@ -491,6 +494,127 @@ def test_mxu_fragment_layout_one_hot(cuda_device, tile):
         assert torch.equal(got.cpu(), want), (word, col, bit)
 
 
+def _mxu_exact(pol, a, b, s, t, schedule, device, what):
+    """bitserial_gemm, the identity-epilogue bitserial_fused and (at one
+    bit) bgemm at 'mxu' on ``a`` (M, K) and ``b`` (K, N): each equal to the
+    exact product, to the plain version and to the 'vpu' kernel."""
+    exact = a.astype(np.int64) @ b.astype(np.int64)
+    ta = bitops.pack_a(torch.as_tensor(a, dtype=torch.int32), s)
+    tb = bitops.pack_b(torch.as_tensor(b, dtype=torch.int32), t)
+    ca, cb = _on(device, ta, tb)
+    kw = _tile_jump_kwargs(schedule, ca, pol)
+    vpu = pol.replace(mode="vpu")
+    one = torch.ones((a.shape[0], 1), device=device)
+    zero = torch.zeros((1, b.shape[1]), device=device)
+    before = dict(LAUNCHES)
+    got = {"gemm": ops.bitserial_gemm(ca, cb, policy=pol, **kw),
+           "fused": ops.bitserial_fused(ca, cb, one, zero, out_bits=30,
+                                        relu=False, policy=pol, **kw)}
+    want = {"gemm": ops.bitserial_gemm(ca, cb, policy=vpu, **kw),
+            "fused": ops.bitserial_fused(ca, cb, one, zero, out_bits=30,
+                                         relu=False, policy=vpu, **kw)}
+    launched = {"bitserial_gemm_mxu": 1, "bitserial_fused_mxu": 1}
+    if s == t == 1:
+        got["bgemm"] = ops.bgemm(ca[0], cb[0], policy=pol, **kw)
+        want["bgemm"] = ops.bgemm(ca[0], cb[0], policy=vpu, **kw)
+        launched["bgemm_mxu"] = 1
+    for name, count in launched.items():
+        assert LAUNCHES[name] == before[name] + count, (name, what)
+    plain = ops.bitserial_gemm(ta, tb, policy=pol,
+                               **_tile_jump_kwargs(schedule, ta, pol))
+    np.testing.assert_array_equal(plain.numpy(), exact, err_msg=what)
+    torch.cuda.synchronize()
+    for name in got:
+        np.testing.assert_array_equal(got[name].cpu().numpy(), exact,
+                                      err_msg=f"{name} {what}")
+        assert torch.equal(got[name], want[name]), (name, what)
+
+
+@pytest.mark.parametrize("schedule", ["none", "mask", "compact", "sgt"])
+@pytest.mark.parametrize("s,t", [(8, 8), (3, 5), (1, 8), (1, 1)])
+@pytest.mark.parametrize("tile", [(8, 32, 1), (8, 32, 4), (16, 8, 8)])
+def test_mxu_short_walks_pair_planes_on_card(cuda_device, schedule, s, t, tile):
+    """K of 1, 2, 3, 4 and 5 words: the short walk pairs same-weight plane
+    pairs into one mma over 1, 2 or 4 live words (3 leave one word of the
+    mma empty), 5 takes the long walk; at block_w = 1 the words are exact,
+    at 4 and 8 the padding words are zero and dropped. Random, all-zero and
+    one-word-only A."""
+    pol = _mxu_policy(tile)
+    rng = np.random.default_rng(s * 8 + t)
+    for words in (1, 2, 3, 4, 5):
+        k = 32 * words - 7  # ragged: the last word is partly padding
+        b = rng.integers(0, 1 << t, (k, 40))
+        for pattern in ("random", "zero", "one_word"):
+            a = rng.integers(0, 1 << s, (37, k))
+            if pattern == "zero":
+                a[:] = 0
+            elif pattern == "one_word":
+                keep = 32 * int(rng.integers(0, words))
+                a[:, :keep] = 0
+                a[:, keep + 32:] = 0
+            _mxu_exact(pol, a, b, s, t, schedule, cuda_device,
+                       f"words={words} {pattern}")
+
+
+@pytest.mark.parametrize("schedule", ["none", "mask", "compact", "sgt"])
+@pytest.mark.parametrize("s,t", [(1, 8), (1, 1), (3, 5)])
+def test_mxu_zero_runs_skipped_on_card(cuda_device, schedule, s, t):
+    """One non-zero word per 16-row strip, anywhere in a 72-word K (the
+    adjacency's): every other run of the strip is zero in every lane and
+    plane and issues no mma; the one that is not must still count."""
+    pol = _mxu_policy((8, 32, 4))
+    rng = np.random.default_rng(s + t)
+    m, k = 100, 32 * 72
+    for _ in range(3):
+        a = np.zeros((m, k), dtype=np.int64)
+        for r0 in range(0, m, 16):
+            row = r0 + int(rng.integers(0, min(16, m - r0)))
+            word = int(rng.integers(0, 72))
+            a[row, 32 * word:32 * word + 32] = rng.integers(0, 1 << s, 32)
+        b = rng.integers(0, 1 << t, (k, 16))
+        _mxu_exact(pol, a, b, s, t, schedule, cuda_device, "one word a strip")
+
+
+@pytest.mark.parametrize("m,k,n,s,t", [
+    (61, 1000, 70, 2, 3),     # 70 columns: past one 64-column block
+    (40, 2304, 130, 1, 1),    # 1-bit: past one 128-column block
+    (40, 2304, 64, 1, 8),     # t = 8 of 72 words: a narrower column block
+    (24, 12800, 9, 1, 8),     # 400 words x 8 planes: two K windows
+    (18, 100000, 8, 1, 1),    # 1-bit, 3125 words: two K windows
+])
+def test_mxu_staged_windows_on_card(cuda_device, m, k, n, s, t):
+    """Shapes whose B does not fit one column block or one K window of the
+    staged copy: N past a block, and K past the window, in every schedule."""
+    pol = _mxu_policy((8, 32, 4))
+    rng = np.random.default_rng(m + n)
+    a = _operand(rng, m, k, s, "block_diag")
+    a[:, : k // 3] = rng.integers(0, 1 << s, (m, k // 3))
+    b = rng.integers(0, 1 << t, (k, n))
+    for schedule in ("none", "mask", "compact", "sgt"):
+        _mxu_exact(pol, a, b, s, t, schedule, cuda_device, f"{(m, k, n)}")
+
+
+@pytest.mark.parametrize("schedule", ["mask", "compact", "sgt"])
+@pytest.mark.parametrize("tile", [(1, 32, 1), (2, 16, 3), (4, 8, 5), (8, 32, 4),
+                                  (12, 8, 4), (24, 4, 2)])
+def test_mxu_row_tiles_below_a_strip_on_card(cuda_device, schedule, tile):
+    """block_m < 16, or not a divisor of 16: a strip spans several row tiles,
+    and each row's words enter only where its own row tile visits them.
+    Banded A, so that the row tiles' lists differ."""
+    pol = _mxu_policy(tile)
+    rng = np.random.default_rng(tile[0])
+    for s, t in ((3, 5), (1, 8), (1, 1)):
+        m, k = 72, 32 * 40
+        a = rng.integers(0, 1 << s, (m, k))
+        for r in range(m):  # each row keeps a band of its own
+            lo = (r * 7) % 30 * 32
+            a[r, :lo] = 0
+            a[r, lo + 5 * 32:] = 0
+        a[::5] = 0
+        b = rng.integers(0, 1 << t, (k, 24))
+        _mxu_exact(pol, a, b, s, t, schedule, cuda_device, f"s={s} t={t}")
+
+
 @pytest.mark.parametrize("model", ["gcn", "gin"])
 def test_forward_qgtc_at_mxu_on_card_equals_plain_engine(cuda_device, model):
     n, d = 300, 128
@@ -551,7 +675,7 @@ def test_tensor_api_at_mxu_on_card(cuda_device):
 
 # the 'vpu' kernel launches a warp a row whatever the tile; the tile still
 # sets the grid of the jump artifacts and the padding, so each is checked
-VPU_TILES = MXU_TILES + [(1, 1024, 4), (1024, 1, 1)]
+VPU_TILES = MXU_TILES
 # ragged N: not a multiple of block_n, and below 32
 VPU_SHAPES = [(61, 1000, 70), (37, 333, 5), (20, 1100, 16)]
 
@@ -631,17 +755,15 @@ def test_vpu_bgemm_at_every_tile_is_exact_on_card(cuda_device, schedule, pattern
                                       err_msg=f"{(m, k, n)}")
 
 
-@pytest.mark.parametrize("tile", [(8, 32, 4), (1, 1024, 4), (1024, 1, 1)])
-@pytest.mark.parametrize("s,t", [(1, 1), (1, 8), (8, 8), (3, 5)])
-def test_vpu_one_hot_words(cuda_device, tile, s, t):
+def _one_hot_words(device, pol, s, t):
     """A with one set bit a row, at every (plane < s, word < 40, bit 0 or
     31), against a random B; and a random A against B with one set bit a
     column, at every (plane < t, word, bit). 40 words cross the 'vpu'
-    kernel's 32-word chunks and t * 80 columns its column blocks, so a wrong
-    lane-to-word, plane-group or column mapping cannot pass. Every product
-    is exact: bitserial_gemm and the identity-epilogue bitserial_fused in
-    the four schedules, and bgemm at s = t = 1."""
-    pol = _vpu_policy(tile)
+    kernel's 32-word chunks and the 'mxu' kernel's 8-word runs, and t * 80
+    columns the column blocks of both, so a wrong lane-to-word, plane or
+    column mapping cannot pass. Every product is exact: bitserial_gemm and
+    the identity-epilogue bitserial_fused in the four schedules, and bgemm
+    at s = t = 1."""
     words = 40
     k = 32 * words
     rng = np.random.default_rng(s * 16 + t)
@@ -657,10 +779,10 @@ def test_vpu_one_hot_words(cuda_device, tile, s, t):
              (rng.integers(0, 1 << s, (64, k)), b_hot))
     for a, b in pairs:
         exact = a @ b
-        ca, cb = _on(cuda_device, bitops.pack_a(torch.as_tensor(a, dtype=torch.int32), s),
+        ca, cb = _on(device, bitops.pack_a(torch.as_tensor(a, dtype=torch.int32), s),
                      bitops.pack_b(torch.as_tensor(b, dtype=torch.int32), t))
-        one = torch.ones((a.shape[0], 1), device=cuda_device)
-        zero = torch.zeros((1, b.shape[1]), device=cuda_device)
+        one = torch.ones((a.shape[0], 1), device=device)
+        zero = torch.zeros((1, b.shape[1]), device=device)
         for schedule in ("none", "mask", "compact", "sgt"):
             kw = _tile_jump_kwargs(schedule, ca, pol)
             got = [ops.bitserial_gemm(ca, cb, policy=pol, **kw),
@@ -672,3 +794,17 @@ def test_vpu_one_hot_words(cuda_device, tile, s, t):
             for out in got:
                 np.testing.assert_array_equal(out.cpu().numpy(), exact,
                                               err_msg=schedule)
+
+
+@pytest.mark.parametrize("tile", [(8, 32, 4), (1, 1024, 4), (1024, 1, 1)])
+@pytest.mark.parametrize("s,t", [(1, 1), (1, 8), (8, 8), (3, 5)])
+def test_vpu_one_hot_words(cuda_device, tile, s, t):
+    """One-hot words through the 'vpu' kernels (_one_hot_words)."""
+    _one_hot_words(cuda_device, _vpu_policy(tile), s, t)
+
+
+@pytest.mark.parametrize("tile", [(8, 32, 4), (1, 1024, 4), (1024, 1, 1)])
+@pytest.mark.parametrize("s,t", [(1, 1), (1, 8), (8, 8), (3, 5)])
+def test_mxu_one_hot_words(cuda_device, tile, s, t):
+    """One-hot words through the 'mxu' kernels (_one_hot_words)."""
+    _one_hot_words(cuda_device, _mxu_policy(tile), s, t)

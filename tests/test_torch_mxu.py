@@ -11,6 +11,8 @@ held to its plain version on the card in ``tests/test_torch_cuda.py``.
 """
 import dataclasses
 import itertools
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -34,6 +36,7 @@ from repro_torch import api  # noqa: E402
 from repro_torch.api import backends  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.core import bitops, bittensor as bt, zerotile  # noqa: E402
+from repro_torch.core.bitops import popcount32, wrap_int32  # noqa: E402
 from repro_torch.graph import batching, datasets, partition  # noqa: E402
 from repro_torch.kernels import bitserial, ops, sgt  # noqa: E402
 from repro_torch.kernels._build import LAUNCHES  # noqa: E402
@@ -52,14 +55,53 @@ TILES = [(8, 32, 4), (1, 32, 1), (16, 8, 8), (32, 32, 9), (1, 1024, 4),
          (32, 1, 2), (2, 16, 3), (4, 8, 5), (1024, 1, 1)]
 
 
-MXU_MAX_FRAGMENTS = 4  # kMaxFrags of csrc/bitserial_mma.cuh
+MMA_HEADER = (Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
+              / "bitserial_mma.cuh")
+MAX_SMEM = 232_448  # shared memory one block may use on Hopper
 
 
-def _fragments_per_warp(block_m, block_n):
-    """m16 x n8 fragments of the rounded-up tile over the block's warps,
-    dealt round robin, as the mxu kernel deals them."""
-    frags = -(-block_m // 16) * -(-block_n // 8)
-    return -(-frags // (block_m * block_n // 32))
+def _header_constants():
+    """The launch constants of csrc/bitserial_mma.cuh, read from the header,
+    so that the mirror below follows the kernel's own numbers."""
+    text = MMA_HEADER.read_text()
+    found = {}
+    for name, expr in re.findall(r"^constexpr int (k\w+) = ([^;?]+);", text, re.M):
+        found[name] = eval(expr, {}, dict(found))  # products of earlier names
+    frags = re.search(r"kMaxFrags = kOneBit \? (\d+) : (\d+);", text)
+    found["kMaxFrags"] = {True: int(frags[1]), False: int(frags[2])}
+    return found
+
+
+MMA = _header_constants()
+
+
+def _mxu_launch(t, w, n, m, schedule, block_m, one_bit=False):
+    """What launch_mma_kernel (csrc/bitserial_mma.cuh) launches for t planes
+    of B, W words of K, N columns and M rows: a warp a 16-row strip,
+    kMmaWarps strips a block, a column block of a power of two fragments
+    halved while t planes of all of K would exceed kStageBytes, and the K
+    window that then fits. The tile enters only through block_m, and only
+    to say whether a list schedule's strips lie in one row tile."""
+    frags = 1
+    while frags < MMA["kMaxFrags"][one_bit] and 8 * frags < n:
+        frags *= 2
+
+    def row_words(f):
+        return 8 * f + (8 if (8 * f) % 16 == 0 else 0)
+
+    while frags > 1 and 4 * t * w * row_words(frags) > MMA["kStageBytes"]:
+        frags //= 2
+    kwin = min(w, MMA["kStageBytes"] // (4 * t * row_words(frags)))
+    if kwin < w:
+        kwin = max(4, kwin // 4 * 4)
+    short = w <= MMA["kPairWords"] and (schedule != "list" or block_m % 16 == 0)
+    stage = (MMA["kMaxPlanes"] * 16 * MMA["kPairWords"] if short
+             else MMA["kWarpStageWords"])
+    strips = -(-m // 16)
+    return {"grid": (-(-strips // MMA["kMmaWarps"]), -(-n // (8 * frags))),
+            "threads": 32 * MMA["kMmaWarps"], "frags": frags, "kwin": kwin,
+            "short": short,
+            "smem": 4 * (t * kwin * row_words(frags) + MMA["kMmaWarps"] * stage)}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -193,9 +235,12 @@ def test_every_vpu_tile_computes_at_mxu(block_m, block_n, block_w):
     vpu = api.ExecutionPolicy(block_m=block_m, block_n=block_n, block_w=block_w)
     mxu = api.ExecutionPolicy(block_m=block_m, block_n=block_n,
                               block_w=block_w, mode="mxu")
-    assert _fragments_per_warp(block_m, block_n) <= MXU_MAX_FRAGMENTS
     rng = np.random.default_rng(block_m + block_n + block_w)
     s, t, m, k, n = 3, 2, 37, 333, 21
+    for schedule in ("dense", "mask", "list"):
+        w = -(-k // 32 // block_w) * block_w
+        plan = _mxu_launch(t, w, n, m + (-m) % block_m, schedule, block_m)
+        assert plan["smem"] <= MAX_SMEM and plan["kwin"] == w
     a = _banded(rng, m, k, s)
     b = rng.integers(0, 1 << t, (k, n)).astype(np.int32)
     ta, tb = bitops.pack_a(torch.as_tensor(a), s), bitops.pack_b(torch.as_tensor(b), t)
@@ -218,24 +263,116 @@ def test_every_vpu_tile_computes_at_mxu(block_m, block_n, block_w):
 
 
 def test_mxu_fragments_fit_every_tile_the_policy_accepts():
-    """The mxu kernel runs on the 'vpu' kernel's blocks (block_m * block_n
-    threads) and holds at most 4 m16 x n8 fragments a warp (kMaxFrags in
-    csrc/bitserial_mma.cuh, whose launcher refuses more); that holds for
-    every (block_m, block_n) that ExecutionPolicy accepts, so no policy is
-    refused at 'mxu'."""
-    most = 0
-    for block_m, block_n in itertools.product(range(1, 1025), repeat=2):
-        threads = block_m * block_n
-        if threads > bitserial.MAX_THREADS or threads % 32:
-            continue
-        most = max(most, _fragments_per_warp(block_m, block_n))
-    assert most == MXU_MAX_FRAGMENTS
+    """The mxu launch no longer follows the tile: for every (block_m,
+    block_n) that ExecutionPolicy accepts, at shapes from one word of K to
+    3125 (two K windows) and from 5 to 130 columns, the launch of
+    csrc/bitserial_mma.cuh (mirrored by _mxu_launch from the header's own
+    constants) is the same whatever block_n, keeps its shared memory within
+    what a block may use and its fragments within kMaxFrags, covers K with
+    its windows, keeps a window's words within the 16 bits a slot word
+    takes, and finds a window row's plane exactly by its multiply-high; so
+    no policy is refused at 'mxu'."""
+    block_ms = sorted({bm for bm, bn in itertools.product(range(1, 1025), repeat=2)
+                       if bm * bn <= bitserial.MAX_THREADS and bm * bn % 32 == 0})
+    assert block_ms[0] == 1 and block_ms[-1] == 1024
+    shapes = [(t, w, n, one_bit) for t in (1, 2, 3, 5, 8) for w in (1, 4, 5, 72, 400, 3125)
+              for n in (5, 16, 64, 70, 130) for one_bit in (False, True)
+              if not one_bit or t == 1]
+    for t, w, n, one_bit in shapes:
+        plans = {}
+        for block_m, schedule in itertools.product(block_ms, ("dense", "mask", "list")):
+            plan = _mxu_launch(t, w, n, 2304, schedule, block_m, one_bit)
+            # block_m decides only whether a list walk is short, and so
+            # its stage of shared memory
+            varies = ("short", "smem") if schedule == "list" else ()
+            plans.setdefault(schedule, set()).add(
+                tuple((k, v) for k, v in plan.items() if k not in varies))
+            assert plan["smem"] <= MAX_SMEM, (t, w, n, block_m, plan)
+            assert 1 <= plan["frags"] <= MMA["kMaxFrags"][one_bit]
+            assert plan["kwin"] == w or plan["kwin"] % 4 == 0
+            assert 0 < plan["kwin"] < 0xffff
+            kwin = plan["kwin"]
+            inv = 0xffffffff // kwin + 1
+            rows = range(t * kwin)
+            assert kwin == 1 or all((r * inv) >> 32 == r // kwin for r in rows)
+        assert all(len(v) == 1 for v in plans.values()), (t, w, n)
     with pytest.raises(ValueError):
         api.ExecutionPolicy(block_m=3, block_n=5, mode="mxu")
     with pytest.raises(ValueError, match="mode"):
         ops.bitserial_gemm(torch.zeros((1, 8, 4), dtype=torch.int32),
                            torch.zeros((1, 4, 8), dtype=torch.int32),
                            mode="tensor")
+
+
+def _pairing_plan(s, t, words):
+    """The short walk's mmas (csrc/bitserial_mma.cuh, ``paired``): for each
+    weight d = p + q, groups k < words of 8 // words plane pairs (p, d - p)
+    from p_lo + k * (8 // words) on; a group past the weight's last pair
+    issues no mma."""
+    per = 8 // words
+    for d in range(s + t - 1):
+        p_lo, p_hi = max(0, d - t + 1), min(d, s - 1)
+        for k in range(words):
+            start = p_lo + k * per
+            if start <= p_hi:
+                yield d, [(p, d - p) for p in range(start, min(start + per, p_hi + 1))]
+
+
+def _paired_product(ap, bp):
+    """The short walk's product, mirrored in torch popcounts on packed
+    (s, M, W <= 4) x (t, W, N): the words zero in every row and plane are
+    dropped, R = 1, 2 or 4 words a pair remain, and an mma's slot j holds
+    word j % R of pair j // R; its popcounts carry the one weight 2^d.
+    Returns (the int32 product, the mmas issued)."""
+    s, m, w = ap.shape
+    t, _, n = bp.shape
+    used = [x for x in range(w) if bool(ap[:, :, x].ne(0).any())]
+    acc = torch.zeros((m, n), dtype=torch.int64)
+    if not used:
+        return wrap_int32(acc), 0
+    words = 1 if len(used) == 1 else 2 if len(used) == 2 else 4
+    mmas = 0
+    for d, pairs in _pairing_plan(s, t, words):
+        mmas += 1
+        for j in range(8):
+            pair, wi = divmod(j, words)
+            if pair >= len(pairs) or wi >= len(used):
+                continue  # a slot the mma reads as zero words
+            p, q = pairs[pair]
+            x = used[wi]
+            acc += popcount32(ap[p, :, x][:, None] & bp[q, x, :][None, :]) << d
+    return wrap_int32(acc), mmas
+
+
+@pytest.mark.parametrize("s,t", list(itertools.product(range(1, 9), repeat=2)))
+def test_mxu_pairing_plan_equals_plain(s, t):
+    """Same-weight plane pairs sharing one k256 mma give the plain
+    version's int32, at every K of at most 128 bits (1, 2, 3 or 4 words
+    left once the zero words are dropped, a K of 64 bits padded to 128
+    included)."""
+    rng = np.random.default_rng(s * 9 + t)
+    for k, pad in ((16, 0), (32, 0), (40, 0), (64, 64), (100, 0), (128, 0)):
+        a = rng.integers(0, 1 << s, (16, k))
+        b = rng.integers(0, 1 << t, (k, 8))
+        ap = bitops.pack_a(torch.as_tensor(np.pad(a, ((0, 0), (0, pad)))
+                                           .astype(np.int32)), s)
+        bp = bitops.pack_b(torch.as_tensor(np.pad(b, ((0, pad), (0, 0)))
+                                           .astype(np.int32)), t)
+        got, mmas = _paired_product(ap, bp)
+        want = bitserial.bitserial_gemm_plain(ap, bp, block_m=1, block_w=1)
+        assert torch.equal(got, want), k
+        np.testing.assert_array_equal(got.numpy(), a.astype(np.int64) @ b)
+        words = {1: 1, 2: 2, 3: 4, 4: 4}[-(-k // 32)]
+        assert mmas == len(list(_pairing_plan(s, t, words)))
+        assert mmas <= -(-s * t * words // 8) + s + t  # fuller than one pair an mma
+
+
+def test_mxu_pairing_cuts_the_mmas_of_the_feature_gemms():
+    """At s = t = 8 the short walk issues 36 mmas a fragment for a K of 4
+    words (GIN's and GCN's 128-wide features), 22 for 2 words (64 bits) and
+    15 for 1, against the 64 of one plane pair an mma."""
+    assert [len(list(_pairing_plan(8, 8, r))) for r in (4, 2, 1)] == [36, 22, 15]
+    assert len(list(_pairing_plan(8, 8, 8))) == 64
 
 
 def test_reuse_false_reaches_bgemm_at_mxu(monkeypatch):
