@@ -17,8 +17,11 @@ without printing a result:
      not a multiple of 32 and M not a multiple of block_m. The 4-bit
      wq_gemm, a float product, and its plain version are each held to the
      float32 dot-product error bound around a float64 product of the same
-     dequantized weight, at the reference test's shapes and a ragged one,
-     x in float32 and bf16, at three tile sizes. Then mode="mxu", the
+     dequantized weight, at the reference test's shapes, ragged ones and
+     the kernel's own paths (a K split over a cluster, tiles past 32 rows),
+     groups 32, 16 and 8, x in float32 and bf16 and scaled by 2^20 and
+     2^-20, at three tile sizes; and a row's result bit-equal at M = 1, 3,
+     8, 37 and 128. Then mode="mxu", the
      tensor-core kernels bitserial_gemm_mxu (four schedules),
      bitserial_fused_mxu and bgemm_mxu, each equal to its plain version
      and to the 'vpu' kernel at plane pairs (1,1)..(8,8), patterns random,
@@ -72,9 +75,10 @@ without printing a result:
      host wall time, device time of its kernels and of the bit-serial
      kernel alone, and the device's idle share.
   9. wq_gemm timing — at the gate projection and lm_head, batch 1, 8 and
-     128: ms (a CUDA graph of 50 calls over enough weight copies to exceed
-     L2) beside its plain version, its bound, and float32 and bf16
-     torch.matmul of the dequantized weight.
+     128, x in float32 and bf16: ms (a CUDA graph of 50 calls over enough
+     weight copies to exceed L2) beside its plain version, its bound (bytes
+     or bf16 tensor-core passes, with the CUDA-core bound beside it), and
+     float32 and bf16 torch.matmul of the dequantized weight.
 
 The line before the last lists each kernel as JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -102,10 +106,13 @@ FUSED_EPILOGUES = ((8, True), (8, False), (4, True), (4, False), (2, True),
 PACK_BITS = (1, 2, 5, 8)
 PACK_SHAPES = ((37, 333), (129, 33), (61, 1000), (2304, 128))
 SCHEDULES = ("dense", "mask", "compact", "sgt")
-# H100 SXM published peaks: HBM bytes/s, and the float32 rate outside the
-# tensor cores, where bitpack's and wq_gemm's float arithmetic runs.
+# H100 SXM published peaks: HBM bytes/s, the float32 rate outside the
+# tensor cores, where bitpack's float arithmetic runs, and the dense bf16
+# tensor-core rate, where wq_gemm's runs (float32 x as three exact bf16
+# passes, bf16 x as one).
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
+PEAK_BF16_S = 989e12
 # The 'vpu' kernels' integer rates, results a clock on one SM for compute
 # capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
 # throughput): popcount 16, and 64 for the 32-bit AND (LOP3) and the
@@ -142,10 +149,19 @@ ONE_HOT_TILES = ((8, 32, 4), (1, 1024, 4), (1024, 1, 1))
 ONE_HOT_ST = ((1, 1), (1, 8), (8, 8), (3, 5))
 # bit-serial GEMMs of one forward_qgtc: two per GCN layer, three per GIN layer
 PER_FORWARD = {"gcn": 6, "gin": 9}
-# wq_gemm: the reference test's (M, K, N) and a ragged one, group sizes,
-# and tile sizes (block_m, block_n, block_k) besides the default
-WQ_SHAPES = ((1, 128, 256), (8, 256, 512), (5, 160, 64), (13, 416, 300))
-WQ_GROUPS = (32, 16)
+# wq_gemm: the reference test's (M, K, N) and a ragged one; the K split of
+# the decode shapes (a cluster of 8 at N = 4096 and at N = 512), a wide tile
+# past 32 rows with N not a multiple of 16 bytes of packed row, and a ragged
+# M past the tall tile; group sizes (8: not whole 16-row chunks), and tile
+# sizes (block_m, block_n, block_k) besides the default
+WQ_SHAPES = ((1, 128, 256), (8, 256, 512), (5, 160, 64), (13, 416, 300),
+             (1, 4096, 4096), (8, 13440, 512), (128, 1024, 1000),
+             (37, 416, 300))
+WQ_GROUPS = (32, 16, 8)
+# x scaled by 2^20 and 2^-20 as well: the three bf16 pieces must carry it
+WQ_X_SCALES = (1.0, 2.0 ** 20, 2.0 ** -20)
+# a row's result at these M must be the same bit for bit (wg's K, N = 4096)
+WQ_M_ROWS = (1, 3, 8, 37, 128)
 WQ_BLOCKS = ((8, 256, 128), (1, 64, 32), (32, 128, 64))
 # codeqwen1.5-7b (src/repro/configs/codeqwen1_5_7b.py): d_model 4096, 32
 # heads with 32 kv heads, d_ff 13440, vocab 92416; one decoder layer's
@@ -221,6 +237,23 @@ def roofline(nbytes, ops) -> tuple[float, str]:
     and which bounds."""
     t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def wq_bound(m, k, n, w_bytes, x_bytes) -> dict:
+    """Least time (ms) for wq_gemm at (M, K, N): the larger of its bytes (x
+    read once, the packed weight and its scales, the float32 output) over
+    the HBM rate and its bf16 tensor-core passes (3 for float32 x, 1 for
+    bf16: the pieces the kernel multiplies) at 2 M K N each over the dense
+    bf16 rate; beside it the CUDA-core bound the first kernel was held to
+    (2 M K N float32 operations at 67 TFLOP/s)."""
+    passes = 3 if x_bytes == 4 else 1
+    t_bytes = (x_bytes * m * k + w_bytes + 4 * m * n) / PEAK_BYTES_S * 1e3
+    t_ops = passes * 2 * m * k * n / PEAK_BF16_S * 1e3
+    old_ms, old_by = roofline(x_bytes * m * k + w_bytes + 4 * m * n, 2 * m * k * n)
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "passes": passes, "cuda_core_bound_ms": old_ms,
+            "cuda_core_bound_by": old_by}
 
 
 def int_rates(torch) -> dict:
@@ -1399,12 +1432,24 @@ def _wq_bound_check(torch, got, x, w64, w64_abs, what) -> float:
 
 def phase_wq_gemm_vs_plain(torch, card) -> float:
     """wq_gemm and its plain version on the same CUDA tensors, each held to
-    the float32 error bound. Returns the largest |kernel - plain|."""
+    the float32 error bound: every shape, group and x dtype at the default
+    tiles and at WQ_BLOCKS, and with x scaled by 2^20 and 2^-20 at the
+    default tiles. Then a row's result at every M of WQ_M_ROWS, bit for bit.
+    Returns the largest |kernel - plain|."""
     from repro_torch.kernels import ops, wqmm
     from repro_torch.kernels._build import LAUNCHES
 
     gen = torch.Generator(device=DEVICE).manual_seed(6)
     max_err, max_ratio, checks = 0.0, 0.0, 0
+
+    def launch(x, wp, sc, group, blocks, what):
+        before = LAUNCHES["wq_gemm"]
+        got = ops.wq_gemm(x, wp, sc, group=group, block_m=blocks[0],
+                          block_n=blocks[1], block_k=blocks[2])
+        if LAUNCHES["wq_gemm"] != before + 1:
+            raise AssertionError(f"{what}: the kernel did not launch")
+        return got
+
     for m, k, n in WQ_SHAPES:
         for group in WQ_GROUPS:
             w = torch.randn((k, n), generator=gen, device=DEVICE)
@@ -1412,27 +1457,41 @@ def phase_wq_gemm_vs_plain(torch, card) -> float:
             w64 = wqmm.unpack_w4(wp, sc, group).double()
             w64_abs = w64.abs()
             for dtype in (torch.float32, torch.bfloat16):
-                x = torch.randn((m, k), generator=gen, device=DEVICE).to(dtype)
-                what = f"wq_gemm {(m, k, n)} group={group} {dtype}"
-                plain = wqmm.wq_gemm_plain(x, wp, sc, group=group)
-                max_ratio = max(max_ratio, _wq_bound_check(
-                    torch, plain, x, w64, w64_abs, f"plain {what}"))
-                for bm, bn, bk in WQ_BLOCKS:
-                    before = LAUNCHES["wq_gemm"]
-                    got = ops.wq_gemm(x, wp, sc, group=group, block_m=bm,
-                                      block_n=bn, block_k=bk)
-                    if LAUNCHES["wq_gemm"] != before + 1:
-                        raise AssertionError(f"{what}: the kernel did not launch")
+                x1 = torch.randn((m, k), generator=gen, device=DEVICE)
+                for scale in WQ_X_SCALES:
+                    x = (x1 * scale).to(dtype)
+                    what = f"wq_gemm {(m, k, n)} group={group} {dtype} x*{scale}"
+                    plain = wqmm.wq_gemm_plain(x, wp, sc, group=group)
                     max_ratio = max(max_ratio, _wq_bound_check(
-                        torch, got, x, w64, w64_abs,
-                        f"kernel {what} blocks {(bm, bn, bk)}"))
-                    max_err = max(max_err, (got - plain).abs().max().item())
-                    checks += 1
+                        torch, plain, x, w64, w64_abs, f"plain {what}"))
+                    for blocks in WQ_BLOCKS if scale == 1.0 else WQ_BLOCKS[:1]:
+                        got = launch(x, wp, sc, group, blocks, what)
+                        max_ratio = max(max_ratio, _wq_bound_check(
+                            torch, got, x, w64, w64_abs,
+                            f"kernel {what} blocks {blocks}"))
+                        if scale == 1.0:
+                            max_err = max(max_err, (got - plain).abs().max().item())
+                        checks += 1
+            del w64, w64_abs
+    # a row's result does not depend on M
+    k, n = D_MODEL, D_MODEL
+    wp, sc = wqmm.pack_w4(torch.randn((k, n), generator=gen, device=DEVICE) * 0.02)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn((max(WQ_M_ROWS), k), generator=gen, device=DEVICE).to(dtype)
+        full = launch(x, wp, sc, 32, WQ_BLOCKS[0], f"rows {dtype}")
+        for m in WQ_M_ROWS:
+            got = launch(x[:m].contiguous(), wp, sc, 32, WQ_BLOCKS[0], f"rows {dtype}")
+            torch.cuda.synchronize()
+            if not torch.equal(got, full[:m]):
+                raise AssertionError(f"wq_gemm rows at M={m} {dtype} differ from "
+                                     f"the same rows at M={max(WQ_M_ROWS)}")
+            checks += 1
     emit(phase="kernel_vs_plain", kernel="wq_gemm", checks=checks,
          shapes=[list(x) for x in WQ_SHAPES], groups=list(WQ_GROUPS),
          blocks=[list(b) for b in WQ_BLOCKS], x_dtypes=["float32", "bfloat16"],
-         within_float32_bound=True, max_err_over_bound=max_ratio,
-         max_abs_err=max_err, card=card)
+         x_scales=list(WQ_X_SCALES), within_float32_bound=True,
+         max_err_over_bound=max_ratio, max_abs_err=max_err,
+         rows_bit_equal_at_m=list(WQ_M_ROWS), card=card)
     return max_err
 
 
@@ -1543,10 +1602,13 @@ def phase_weight_only(torch, card):
 
 def phase_wq_timing(torch, card, packed) -> dict:
     """wq_gemm alone at the gate projection and lm_head, batch 1, 8 and
-    128, float32 x. A weight that would stay in L2 is timed in turns over
-    enough copies to exceed it: a decode step reads each layer's weight
-    once. Returns {(weight, M): (ms, plain_ms, bound_ms, bound_by,
-    library_ms)}."""
+    128, x in float32 and in bf16. A weight that would stay in L2 is timed
+    in turns over enough copies to exceed it: a decode step reads each
+    layer's weight once. Beside each: the plain version (float32 x), float32
+    and bf16 torch.matmul of the dequantized weight, and the bound with the
+    tensor-core passes it counts (``wq_bound``) and the CUDA-core bound the
+    first kernel was held to. Returns {(weight, M): (ms, plain_ms, bound_ms,
+    bound_by, library_ms)} for float32 x."""
     from repro_torch.kernels import ops, wqmm
 
     gen = torch.Generator(device=DEVICE).manual_seed(8)
@@ -1563,16 +1625,22 @@ def phase_wq_timing(torch, card, packed) -> dict:
             x16 = x.to(torch.bfloat16)
             turn = itertools.cycle(pool)
             ms = graph_ms(torch, lambda: ops.wq_gemm(x, *next(turn)))
+            ms16 = graph_ms(torch, lambda: ops.wq_gemm(x16, *next(turn)))
             plain_ms = time_ms(torch, lambda: wqmm.wq_gemm_plain(x, wp, sc, group=32),
                                reps=3)
             library_ms = graph_ms(torch, lambda: torch.matmul(x, w32))
             library_bf16_ms = graph_ms(torch, lambda: torch.matmul(x16, w16))
-            b_ms, b_by = roofline(4 * m * k + w_bytes + 4 * m * n, 2 * m * k * n)
-            out[(name, m)] = (ms, plain_ms, b_ms, b_by, library_ms)
+            bnd = wq_bound(m, k, n, w_bytes, 4)
+            out[(name, m)] = (ms, plain_ms, bnd["bound_ms"], bnd["bound_by"],
+                              library_ms)
             emit(phase="kernel_timing", kernel="wq_gemm", weight=name,
                  shape=[m, k, n], x_dtype="float32", group=32, ms=ms,
                  plain_ms=plain_ms, library_ms=library_ms,
-                 library_bf16_ms=library_bf16_ms, bound_ms=b_ms, bound_by=b_by,
+                 library_bf16_ms=library_bf16_ms, **bnd,
+                 weight_copies=copies, card=card)
+            emit(phase="kernel_timing", kernel="wq_gemm", weight=name,
+                 shape=[m, k, n], x_dtype="bfloat16", group=32, ms=ms16,
+                 library_bf16_ms=library_bf16_ms, **wq_bound(m, k, n, w_bytes, 2),
                  weight_copies=copies, card=card)
         del pool, w32, w16
     return out

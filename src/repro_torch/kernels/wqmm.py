@@ -13,7 +13,11 @@ exists in device memory at full precision. Nibble i of byte j holds column
 ``wq_gemm`` takes K padded to ``block_k`` (``ops.wq_gemm`` pads) and masks
 the ragged M and N edges itself. A CUDA tensor launches the kernel in
 ``csrc/wqmm.cu``; a CPU tensor takes ``wq_gemm_plain``.
-``LAUNCHES["wq_gemm"]`` counts the launches.
+``LAUNCHES["wq_gemm"]`` counts the launches. The kernel is a float product
+on the bf16 tensor cores (float32 x as three exact bf16 pieces, the scale
+applied after each group), so it and the plain version agree within the
+float32 bound K * 2^-24 * (|x| @ |W|) around float64, not bit for bit; a
+row's result does not depend on M.
 """
 from __future__ import annotations
 
@@ -23,19 +27,25 @@ from repro_torch.kernels._build import LAUNCHES, check_cuda, kernel_device, laun
 
 __all__ = ["pack_w4", "wq_gemm", "wq_gemm_plain", "unpack_w4", "LAUNCHES"]
 
-# the kernel keeps block_m rows of sums in registers: one instance per height
+# The tiles a call may name. The kernel's own tiles follow M (csrc/wqmm.cu:
+# 256 output columns a block, 8, 16 or 32 rows of x), so none of these
+# bounds is the kernel's: they are the bounds of the first kernel, which
+# ran block_m rows, block_n / 2 * _SLICES threads and the shared memory of
+# _shared_bytes, and they stay so that the tiles accepted before are
+# accepted still, and no others.
 _BLOCK_M_CHOICES = (1, 2, 4, 8, 16, 32)
 _X_DTYPES = (torch.float32, torch.bfloat16)
 _SHARED_BYTES = 227 * 1024  # shared memory one block of an H100 may have
-_SLICES = 4  # thread groups that split each K step (kSlices in csrc/wqmm.cu)
-_MAX_BLOCK_N = 256  # block_n / 2 * _SLICES threads, at most 512
+_SLICES = 4  # the first kernel's thread groups a K step
+_MAX_BLOCK_N = 256  # its block_n / 2 * _SLICES threads, at most 512
 
 
 def _shared_bytes(group: int, block_m: int, block_n: int, block_k: int) -> int:
-    """Shared memory of one block: two stages of the packed weight tile
-    (block_k x block_n/2 bytes) and its scales, each rounded up to 16 bytes
-    as the kernel lays them out (or, if larger, the final reduction of the
-    K slices' sums, 8 rows at a time), and x's float32 tile."""
+    """The first kernel's shared memory for these tiles, the bound a tile
+    is held to: two stages of the packed weight tile (block_k x block_n/2
+    bytes) and its scales, each rounded up to 16 bytes (or, if larger, a
+    reduction of the K slices' sums, 8 rows at a time), and x's float32
+    tile. The kernel's own shared memory does not depend on the tiles."""
     def pad(nbytes):
         return -(-nbytes // 16) * 16
     stage = pad(block_k * block_n // 2) + pad(4 * (block_k // group) * block_n)
@@ -104,9 +114,12 @@ def wq_gemm(x: torch.Tensor, w_packed: torch.Tensor, scales: torch.Tensor, *,
     ``block_k``, which is a multiple of ``group``.
 
     CUDA tensors launch the kernel on the current stream (no
-    synchronisation): one block per (block_m, block_n) output tile, K walked
-    inside it ``block_k`` at a time, each step split over four groups of
-    threads. CPU tensors take ``wq_gemm_plain``.
+    synchronisation): one launch, a block per 256 output columns and 8 to
+    32 rows of x (by M), K split over a thread-block cluster of up to 8
+    blocks at decode (chosen from N, K and the card's SM count). The tiles
+    are checked against the bounds the wrapper has always held them to;
+    ``block_k`` sets the padding (``ops.wq_gemm``). CPU tensors take
+    ``wq_gemm_plain``.
     """
     _check(x, w_packed, scales, group, block_m, block_n, block_k)
     device = kernel_device(x, w_packed, scales)
@@ -121,7 +134,8 @@ def wq_gemm(x: torch.Tensor, w_packed: torch.Tensor, scales: torch.Tensor, *,
         raise ValueError(f"block_m must be one of {_BLOCK_M_CHOICES}, got {block_m}")
     if _shared_bytes(group, block_m, block_n, block_k) > _SHARED_BYTES:
         raise ValueError(f"tiles ({block_m}, {block_n}, {block_k}) at group "
-                         f"{group} exceed {_SHARED_BYTES} bytes of shared memory")
+                         f"{group} exceed {_SHARED_BYTES} bytes of shared memory "
+                         f"in the first kernel's layout")
     m, k = x.shape
     n = w_packed.shape[1] * 2
     out = torch.empty((m, n), dtype=torch.float32, device=device)

@@ -261,8 +261,10 @@ def _within_float32_bound(got, x, w_deq):
 
 
 @pytest.mark.parametrize("m,k,n", [(1, 128, 256), (8, 256, 512), (5, 160, 64),
-                                   (13, 416, 300), (128, 1024, 1000)])
-@pytest.mark.parametrize("group", [32, 16])
+                                   (13, 416, 300), (128, 1024, 1000),
+                                   (1, 4096, 4096), (8, 13440, 512),
+                                   (37, 416, 300)])
+@pytest.mark.parametrize("group", [32, 16, 8])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("blocks", [(8, 256, 128), (1, 64, 32), (32, 128, 64)])
 def test_wq_gemm_kernel_matches_plain_on_card(cuda_device, m, k, n, group,
@@ -286,6 +288,46 @@ def test_wq_gemm_kernel_matches_plain_on_card(cuda_device, m, k, n, group,
     # the CPU's plain version packs the same bytes
     wp_cpu, sc_cpu = wqmm.pack_w4(w.cpu(), group)
     assert torch.equal(wp.cpu(), wp_cpu) and torch.equal(sc.cpu(), sc_cpu)
+
+
+@pytest.mark.parametrize("scale", [2.0 ** 20, 2.0 ** -20])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,n,group", [(1, 4096, 4096, 32), (8, 416, 300, 16),
+                                         (37, 1024, 1000, 8), (3, 36, 40, 12),
+                                         (2, 15, 10, 5)])
+def test_wq_gemm_wide_range_x_within_bound_on_card(cuda_device, scale, dtype,
+                                                   m, k, n, group):
+    """x scaled by 2^20 or 2^-20: the three bf16 pieces of float32 x carry
+    it, and groups and rows that are not multiples of 16 take the element
+    copies and the masked chunks."""
+    rng = np.random.default_rng(m + k + n + group)
+    x = torch.as_tensor((rng.normal(size=(m, k)) * scale).astype(np.float32),
+                        device=cuda_device).to(getattr(torch, dtype))
+    w = torch.as_tensor(rng.normal(size=(k, n)).astype(np.float32),
+                        device=cuda_device)
+    wp, sc = wqmm.pack_w4(w, group)
+    got = ops.wq_gemm(x, wp, sc, group=group, block_k=group)
+    torch.cuda.synchronize()
+    assert got.shape == (m, n) and bool(torch.isfinite(got).all())
+    assert _within_float32_bound(got, x, wqmm.unpack_w4(wp, sc, group))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wq_gemm_row_results_do_not_depend_on_m(cuda_device, dtype):
+    """The split of K and the order of the adds follow N, K and the group,
+    never M: the first rows of x give the same output bit for bit at every
+    M (wg's K, N = 4096)."""
+    rng = np.random.default_rng(3)
+    x = torch.as_tensor(rng.normal(size=(128, 4096)).astype(np.float32),
+                        device=cuda_device).to(getattr(torch, dtype))
+    wp, sc = wqmm.pack_w4(torch.as_tensor(
+        (rng.normal(size=(4096, 4096)) * 0.02).astype(np.float32),
+        device=cuda_device))
+    full = ops.wq_gemm(x, wp, sc)
+    for m in (1, 3, 8, 37):
+        got = ops.wq_gemm(x[:m].contiguous(), wp, sc)
+        torch.cuda.synchronize()
+        assert torch.equal(got, full[:m])
 
 
 def test_wq_gemm_rows_below_the_tile_are_bit_equal(cuda_device):
