@@ -14,7 +14,12 @@ without printing a result:
      bitserial_fused (out_bits 8/4/2, ReLU on and off) and bgemm, in the
      dense, mask, compact and sgt schedules at ragged shapes, at the
      paths' own shapes and with an all-zero A; bitpack at nbits 1/2/5/8, K
-     not a multiple of 32 and M not a multiple of block_m. The 4-bit
+     not a multiple of 32 and M not a multiple of block_m, K = 1, 50 and
+     100, M = 1, rows that are not 16-byte aligned, words past ceil(K/32),
+     a row wider than a tile, x at grid points and the floats beside them,
+     +-inf and past both clip ends, scales outside the kernel's fast
+     quotient, and all of ogbn-arxiv's, ogbn-products' and ppi's features at
+     once (the plain version a slice of rows at a time). The 4-bit
      wq_gemm, a float product, and its plain version are each held to the
      float32 dot-product error bound around a float64 product of the same
      dequantized weight, at the reference test's shapes, ragged ones and
@@ -74,6 +79,10 @@ without printing a result:
   8. profile — one qgtc forward per model and mode under torch.profiler:
      host wall time, device time of its kernels and of the bit-serial
      kernel alone, and the device's idle share.
+  8b. bitpack timing — one batch's features and all of ogbn-arxiv's,
+     ogbn-products' and ppi's at once (random normal x, scale and zero from
+     calibrate): ms under a CUDA graph beside the bytes bound and its share,
+     and the plain version's time.
   9. wq_gemm timing — at the gate projection and lm_head, batch 1, 8 and
      128, x in float32 and bf16: ms (a CUDA graph of 50 calls over enough
      weight copies to exceed L2) beside its plain version, its bound (bytes
@@ -104,7 +113,17 @@ RAGGED = ((37, 333, 5), (61, 1000, 70))
 FUSED_EPILOGUES = ((8, True), (8, False), (4, True), (4, False), (2, True),
                    (2, False))
 PACK_BITS = (1, 2, 5, 8)
-PACK_SHAPES = ((37, 333), (129, 33), (61, 1000), (2304, 128))
+# bitpack: ragged shapes, the Tensor API's, K = 50 (not a multiple of 4: the
+# kernel's 4-byte path) and 100, K = 1, M = 1, and a row wider than a tile's
+# 4096 columns (a row's words over several tiles)
+PACK_SHAPES = ((37, 333), (129, 33), (61, 1000), (2304, 128), (37, 50),
+               (33, 100), (5, 1), (1, 128), (1, 50), (9, 4200))
+# bitpack at whole-graph feature sizes (paper Table 1, graph/datasets.py):
+# one batch of ogbn-arxiv (L2-resident), then all of a graph's features at
+# once, at these bit widths; ppi's K = 50 takes the 4-byte path
+PACK_GRAPHS = (("batch", (2304, 128), (8,)), ("ogbn-arxiv", None, (8, 2, 1)),
+               ("ogbn-products", None, (8, 1)), ("ppi", None, (8,)))
+PACK_SLICE_ROWS = 1 << 18  # the plain version's rows at a time
 SCHEDULES = ("dense", "mask", "compact", "sgt")
 # H100 SXM published peaks: HBM bytes/s, the float32 rate outside the
 # tensor cores, where bitpack's float arithmetic runs, and the dense bf16
@@ -392,7 +411,8 @@ def phase_new_kernels_vs_plain(torch, card):
     the same CUDA tensors. Returns {kernel: max_abs_err}."""
     from repro_torch.api import DEFAULT_POLICY as pol
     from repro_torch.core import bitops
-    from repro_torch.kernels import bgemm, bitpack, bitserial, ops
+    from repro_torch.core.quantize import calibrate
+    from repro_torch.kernels import bgemm, bitserial, ops
 
     gen = torch.Generator().manual_seed(4)
     errs = {"bitserial_fused": 0, "bgemm": 0, "bitpack": 0}
@@ -465,26 +485,118 @@ def phase_new_kernels_vs_plain(torch, card):
          patterns=["random", "zero", "block_diag"], equal=True,
          max_abs_err=errs["bgemm"], card=card)
 
-    # bitpack: K not a multiple of 32, M not a multiple of block_m, and the
-    # Tensor API's feature matrix; values beyond both clip ends
+    # bitpack: the shapes of PACK_SHAPES at every width, each also with words
+    # past ceil(K / 32), from a row that is not 16-byte aligned, and with x
+    # at grid points, +-inf and past both clip ends; then the timed graphs'
+    # features
+    def pack_check(x, scale, zero, nbits, words=None):
+        what = f"bitpack {tuple(x.shape)} nbits={nbits} words={words}"
+        errs["bitpack"] = max(errs["bitpack"], _bitpack_vs_plain(
+            torch, x, scale, zero, nbits, words, what))
+        checks["bitpack"] += 1
+
     for m, k in PACK_SHAPES:
         x = (torch.randn((m, k), generator=gen) * 2).to(DEVICE)
+        need = -(-k // 32)
         for nbits in PACK_BITS:
             scale = torch.tensor(4.0 / (1 << nbits), device=DEVICE)
             zero = torch.tensor(-2.0, device=DEVICE)
-            got = ops.bitpack(x, scale, zero, nbits=nbits)
-            plain = bitpack.bitpack_plain(x, scale, zero, nbits=nbits,
-                                          words=got.shape[2])
-            what = f"bitpack {(m, k)} nbits={nbits}"
-            err = _max_err(torch, got, plain, what)
-            if bool(got[:, :, -(-k // 32):].any()):
-                raise AssertionError(f"padding words not zero: {what}")
-            errs["bitpack"] = max(errs["bitpack"], err)
-            checks["bitpack"] += 1
+            pack_check(x, scale, zero, nbits)
+            for words in (need + 1, need + 5, -(-need // 4) * 4 + 8):
+                pack_check(x, scale, zero, nbits, words)
+            shifted = torch.empty(m * k + 1, device=DEVICE)[1:].view(m, k)
+            shifted.copy_(x)
+            pack_check(shifted, scale, zero, nbits)
+            pack_check(_special_values(torch, x, scale, zero, nbits), scale,
+                       zero, nbits)
+    # scales outside the kernel's fast quotient (2^-100 .. 2^100): __fdiv_rn
+    for step in (2.0 ** -110, 2.0 ** 110):
+        x = (torch.randn((33, 100), generator=gen) * 100 * step).to(DEVICE)
+        scale = torch.tensor(step, device=DEVICE)
+        zero = torch.tensor(0.0, device=DEVICE)
+        for nbits in PACK_BITS:
+            pack_check(x, scale, zero, nbits)
+            pack_check(_special_values(torch, x, scale, zero, nbits), scale,
+                       zero, nbits)
+    graphs = []
+    for name, (m, k), widths in _pack_graphs():
+        x = torch.randn((m, k), generator=torch.Generator(device=DEVICE)
+                        .manual_seed(m), device=DEVICE)
+        for nbits in widths:
+            qp = calibrate(x, nbits)
+            pack_check(x, qp.scale, qp.zero, nbits)
+            graphs.append([name, m, k, nbits])
+        del x
     emit(phase="kernel_vs_plain", kernel="bitpack", checks=checks["bitpack"],
          nbits=list(PACK_BITS), shapes=[list(x) for x in PACK_SHAPES],
-         equal=True, max_abs_err=errs["bitpack"], card=card)
+         variants=["words past ceil(K/32)", "row not 16-byte aligned",
+                   "grid points and 2 floats each side, +-inf, past both "
+                   "clip ends", "scale 2^-110 and 2^110 (__fdiv_rn)"],
+         graphs=graphs, equal=True, padding_zero=True,
+         max_abs_err=errs["bitpack"], card=card)
     return errs
+
+
+def _special_values(torch, x, scale, zero, nbits):
+    """x with its first entries at every grid point zero + j * scale (j from
+    -3 to 2^nbits + 2) and the two floats each side of it, then +-inf and
+    +-1e30: the quotients next to every level and past both clip ends."""
+    grid = zero + torch.arange(-3, (1 << nbits) + 3, device=x.device) * scale
+    up, down = torch.full_like(grid, math.inf), torch.full_like(grid, -math.inf)
+    near = [grid, torch.nextafter(grid, up), torch.nextafter(grid, down)]
+    near += [torch.nextafter(near[1], up), torch.nextafter(near[2], down)]
+    vals = torch.cat(near + [torch.tensor([math.inf, -math.inf, 1e30, -1e30],
+                                          device=x.device)])
+    special = x.clone().view(-1)
+    n = min(special.numel(), vals.numel())
+    special[:n] = vals[:n]
+    return special.view(x.shape)
+
+
+def _pack_graphs():
+    """PACK_GRAPHS as (name, (M, K), widths), M and K from Table 1."""
+    from repro_torch.graph.datasets import TABLE1
+
+    return [(name, shape or (TABLE1[name][0], TABLE1[name][2]), widths)
+            for name, shape, widths in PACK_GRAPHS]
+
+
+def pack_words(k) -> int:
+    """ops.bitpack's word count at the default policy: K padded to block_w
+    words."""
+    from repro_torch.api import DEFAULT_POLICY as pol
+
+    return -(-k // (32 * pol.block_w)) * pol.block_w
+
+
+def _bitpack_plain_slices(torch, x, scale, zero, nbits, words):
+    """The plain version PACK_SLICE_ROWS rows at a time: its int64
+    intermediates of a whole graph's features would not fit at once."""
+    from repro_torch.kernels import bitpack
+
+    return torch.cat([bitpack.bitpack_plain(x[r:r + PACK_SLICE_ROWS], scale,
+                                            zero, nbits=nbits, words=words)
+                      for r in range(0, x.shape[0], PACK_SLICE_ROWS)], dim=1)
+
+
+def _bitpack_vs_plain(torch, x, scale, zero, nbits, words, what):
+    """The kernel (through ops.bitpack when ``words`` is None, else at
+    ``words``) against the plain version on the same CUDA tensors: equal,
+    padding words zero, one launch."""
+    from repro_torch.kernels import bitpack, ops
+
+    before = bitpack.LAUNCHES["bitpack"]
+    if words is None:
+        got = ops.bitpack(x, scale, zero, nbits=nbits)
+    else:
+        got = bitpack.bitpack(x, scale, zero, nbits=nbits, words=words)
+    if bitpack.LAUNCHES["bitpack"] != before + 1:
+        raise AssertionError(f"not one launch: {what}")
+    plain = _bitpack_plain_slices(torch, x, scale, zero, nbits, got.shape[2])
+    err = _max_err(torch, got, plain, what)
+    if bool(got[:, :, -(-x.shape[1] // 32):].any()):
+        raise AssertionError(f"padding words not zero: {what}")
+    return err
 
 
 def _word(bit):
@@ -1307,15 +1419,54 @@ def phase_new_kernel_timing(torch, card, rates, models, dbs):
     ms = graph_ms(torch, lambda: ops.bitpack(x, scale, zero, nbits=8))
     plain_ms = time_ms(torch, lambda: bitpack.bitpack_plain(
         x, scale, zero, nbits=8, words=words), reps=3)
-    # bytes: x read, the planes written; five operations an element
-    # (subtract, divide, floor, two clips), one ballot a bit a word
-    b_ms, b_by = roofline(4 * m * k + 4 * 8 * m * words + 8,
-                          5 * m * k + 8 * m * words)
+    b_ms, b_by = pack_bound(m, k, 8, words)
     out["bitpack"] = (ms, plain_ms, b_ms, b_by, None)
     emit(phase="kernel_timing", kernel="bitpack", shape=[m, k, 8, words],
          ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
          bound_by=b_by, card=card)
     return out
+
+
+def pack_bytes(m, k, nbits, words) -> int:
+    """bitpack's bytes: x read, scale and zero, the planes written."""
+    return 4 * m * k + 8 + 4 * nbits * m * words
+
+
+def pack_bound(m, k, nbits, words) -> tuple[float, str]:
+    """bitpack's least time (ms) and what bounds it: its bytes, and five
+    operations an element (subtract, divide, floor, two clips) and one a
+    bit a word."""
+    return roofline(pack_bytes(m, k, nbits, words),
+                    5 * m * k + nbits * m * words)
+
+
+def phase_bitpack_timing(torch, card):
+    """bitpack alone at PACK_GRAPHS: random normal x, scale and zero from
+    calibrate, ops.bitpack's words; ms under a CUDA graph of 50 calls beside
+    the bound and its share, and the plain version (a slice of rows at a
+    time)."""
+    from repro_torch.core.quantize import calibrate
+    from repro_torch.kernels import ops
+
+    for name, (m, k), widths in _pack_graphs():
+        x = torch.randn((m, k), generator=torch.Generator(device=DEVICE)
+                        .manual_seed(m), device=DEVICE)
+        words = pack_words(k)
+        for nbits in widths:
+            qp = calibrate(x, nbits)
+            ms = graph_ms(torch, lambda: ops.bitpack(x, qp.scale, qp.zero,
+                                                     nbits=nbits))
+            plain_ms = time_ms(torch, lambda: _bitpack_plain_slices(
+                torch, x, qp.scale, qp.zero, nbits, words), warmup=1, reps=1,
+                repeats=3)
+            b_ms, b_by = pack_bound(m, k, nbits, words)
+            nbytes = pack_bytes(m, k, nbits, words)
+            emit(phase="bitpack_timing", graph=name, shape=[m, k, nbits, words],
+                 path="16-byte" if k % 4 == 0 else "4-byte", ms=ms,
+                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                 share_of_bound=b_ms / ms, bytes=nbytes,
+                 l2_resident=nbytes < L2_BYTES, card=card)
+        del x
 
 
 def phase_fig9a(torch, card, dbs):
@@ -1696,6 +1847,7 @@ def main() -> int:
     launches["wq_gemm"], wq_packed = phase_weight_only(torch, card)
     timing = phase_timing(torch, card, rates, models, dbs, tiles)
     timing.update(phase_new_kernel_timing(torch, card, rates, models, dbs))
+    phase_bitpack_timing(torch, card)
     phase_fig9a(torch, card, dbs)
     phase_profile(torch, card, models, dbs)
     # the kernels line carries wq_gemm at the gate projection, batch 1

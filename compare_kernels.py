@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time this checkout's bit-GEMM kernels against other checkouts', in turns,
-on one NVIDIA GPU.
+"""Time this checkout's kernels against other checkouts', in turns, on one
+NVIDIA GPU.
 
 Run from the root of a checkout:
 
@@ -16,8 +16,10 @@ interface is shared), so only the kernels' code differs.
 Cases: the rows of the kernel table in PERF.md §6 at their main-path
 shapes, on batch 0 of ogbn-arxiv at full scale (the adjacency GEMM in the
 four schedules, the fused epilogue, bgemm, GIN's widest feature GEMM), in
-both compute modes, plus bgemm on the all-ones adjacency of fig9a, and
-wq_gemm, x in float32 and in bf16, at codeqwen1.5-7b's gate projection
+both compute modes, plus bgemm on the all-ones adjacency of fig9a;
+bitpack at one batch's features (2304 x 128, 8 bits) and at all of
+ogbn-arxiv's (8, 2 and 1 bits), ogbn-products' (8 and 1) and ppi's (8)
+features at once (``chip_smoke.PACK_GRAPHS``); and wq_gemm, x in float32 and in bf16, at codeqwen1.5-7b's gate projection
 (the 34 MB weight L2-resident: one copy) and at its lm_head (237 MB, past
 the 50 MB L2), batch 1, 8 and 128. Each library's integer result must equal
 this checkout's plain version, and each library's wq_gemm result must lie
@@ -135,6 +137,24 @@ def _cases(torch):
         plane)
     # GIN's widest feature GEMM: 8-bit (M, 128) @ 8-bit (128, 64)
     add("gin 8x8 N=64", "bitserial_gemm", xp, bitops.pack_b(ints((128, 64), 8), 8))
+    # bitpack at one batch's features and all of ogbn-arxiv's,
+    # ogbn-products' and ppi's (PERF.md §6 row 7), ops.bitpack's words
+    from repro_torch.core.quantize import calibrate
+
+    for graph, (m, k), widths in chip_smoke._pack_graphs():
+        x = torch.randn((m, k), generator=torch.Generator(device=DEVICE)
+                        .manual_seed(m), device=DEVICE)
+        words = chip_smoke.pack_words(k)
+        for nbits in widths:
+            qp = calibrate(x, nbits)
+            out = torch.empty((nbits, m, words), dtype=torch.int32, device=DEVICE)
+            want = chip_smoke._bitpack_plain_slices(torch, x, qp.scale, qp.zero,
+                                                    nbits, words)
+            cases.append((f"bitpack {graph} {m}x{k} {nbits} bits", "bitpack", out,
+                          (x.data_ptr(), qp.scale.data_ptr(), qp.zero.data_ptr(),
+                           out.data_ptr(), m, k, words, nbits,
+                           float((1 << nbits) - 1)),
+                          want, {"x": x, "qp": qp}))
     # wq_gemm, float32 x, with ops.wq_gemm's tiles
     from repro_torch.kernels import wqmm
 

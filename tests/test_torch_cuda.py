@@ -14,6 +14,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import chip_smoke  # noqa: E402
 from repro_torch import api  # noqa: E402
 from repro_torch.api import DEFAULT_POLICY as POL  # noqa: E402
 from repro_torch.api import nn  # noqa: E402
@@ -167,21 +168,80 @@ def test_bgemm_kernel_matches_plain_on_card(cuda_device, schedule, pattern):
     np.testing.assert_array_equal(want.numpy(), a.astype(np.int64) @ b)
 
 
-@pytest.mark.parametrize("nbits", [1, 2, 5, 8])
-@pytest.mark.parametrize("m,k", [(8, 256), (20, 100), (129, 33), (2304, 128)])
-def test_bitpack_kernel_matches_plain_on_card(cuda_device, nbits, m, k):
-    rng = np.random.default_rng(nbits * 10 + m)
-    x = torch.as_tensor(rng.normal(size=(m, k)).astype(np.float32))
-    qp = calibrate(x, nbits)
+# ragged shapes, K = 1, 50 (not a multiple of 4: the 4-byte path) and 100,
+# M = 1, a row wider than a tile's 4096 columns, and the four timed shapes:
+# one batch, all of ogbn-arxiv's, ogbn-products' and ppi's features
+BITPACK_TIMED = [(2304, 128), (169343, 128), (2449029, 100), (56944, 50)]
+
+
+def _bitpack_on_card(x, scale, zero, nbits, words=None):
+    """The kernel on x, checked against the plain version on the same CUDA
+    tensors (and against the CPU port on small x): one launch, padding words
+    zero. ``words`` None is ops.bitpack's word count."""
     before = LAUNCHES["bitpack"]
-    cx, cs, cz = _on(cuda_device, x, qp.scale, qp.zero)
-    got = ops.bitpack(cx, cs, cz, nbits=nbits)
+    if words is None:
+        got = ops.bitpack(x, scale, zero, nbits=nbits)
+    else:
+        got = bitpack.bitpack(x, scale, zero, nbits=nbits, words=words)
     assert LAUNCHES["bitpack"] == before + 1
     torch.cuda.synchronize()
-    # on the same CUDA tensors, and against the CPU
-    assert torch.equal(got, bitpack.bitpack_plain(cx, cs, cz, nbits=nbits,
-                                                  words=got.shape[2]))
-    assert torch.equal(got.cpu(), ops.bitpack(x, qp.scale, qp.zero, nbits=nbits))
+    words = got.shape[2]
+    assert torch.equal(got, chip_smoke._bitpack_plain_slices(torch, x, scale, zero,
+                                                             nbits, words))
+    assert not got[:, :, -(-x.shape[1] // 32):].any()
+    if x.numel() <= 1 << 20:
+        assert torch.equal(got.cpu(), bitpack.bitpack_plain(
+            x.cpu(), scale.cpu(), zero.cpu(), nbits=nbits, words=words))
+    return got
+
+
+@pytest.mark.parametrize("nbits", [1, 2, 5, 8])
+@pytest.mark.parametrize("m,k", [(8, 256), (20, 100), (129, 33), (2304, 128),
+                                 (37, 50), (5, 1), (1, 128), (1, 50), (9, 4200)]
+                         + BITPACK_TIMED)
+def test_bitpack_kernel_matches_plain_on_card(cuda_device, nbits, m, k):
+    if m * k > 1 << 22:  # a whole graph's features: made on the card
+        gen = torch.Generator(device=cuda_device).manual_seed(nbits * 10 + m)
+        cx = torch.randn((m, k), generator=gen, device=cuda_device)
+        qp = calibrate(cx, nbits)
+        cs, cz = qp.scale, qp.zero
+    else:
+        rng = np.random.default_rng(nbits * 10 + m)
+        x = torch.as_tensor(rng.normal(size=(m, k)).astype(np.float32))
+        qp = calibrate(x, nbits)
+        cx, cs, cz = _on(cuda_device, x, qp.scale, qp.zero)
+        # on the same CUDA tensors, and against the CPU
+        got = ops.bitpack(cx, cs, cz, nbits=nbits)
+        assert torch.equal(got.cpu(), ops.bitpack(x, qp.scale, qp.zero, nbits=nbits))
+    _bitpack_on_card(cx, cs, cz, nbits)
+    need = -(-k // 32)
+    if m * k <= 1 << 22:
+        # words past ceil(K / 32), some not a multiple of 4
+        for words in (need + 1, need + 5, -(-need // 4) * 4 + 8):
+            _bitpack_on_card(cx, cs, cz, nbits, words)
+        # a row that is not 16-byte aligned: the 4-byte path at any K
+        buf = torch.empty(m * k + 1, device=cuda_device)
+        shifted = buf[1:].view(m, k)
+        shifted.copy_(cx)
+        assert shifted.data_ptr() % 16 != 0
+        _bitpack_on_card(shifted, cs, cz, nbits)
+    _bitpack_on_card(chip_smoke._special_values(torch, cx, cs, cz, nbits), cs, cz,
+                     nbits)
+
+
+@pytest.mark.parametrize("nbits", [1, 2, 5, 8])
+@pytest.mark.parametrize("step", [2.0 ** -110, 2.0 ** 110, 1e-8])
+def test_bitpack_kernel_at_any_scale_on_card(cuda_device, nbits, step):
+    """Scales outside the kernel's fast quotient (2^-100 .. 2^100) take
+    __fdiv_rn; calibrate's smallest scale (1e-8) the fast one."""
+    rng = np.random.default_rng(nbits)
+    x = torch.as_tensor((rng.normal(size=(33, 100)) * 100 * step).astype(np.float32),
+                        device=cuda_device)
+    scale = torch.tensor(step, device=cuda_device)
+    zero = torch.tensor(0.0, device=cuda_device)
+    _bitpack_on_card(x, scale, zero, nbits)
+    _bitpack_on_card(chip_smoke._special_values(torch, x, scale, zero, nbits),
+                     scale, zero, nbits)
 
 
 def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
