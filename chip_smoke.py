@@ -88,13 +88,34 @@ without printing a result:
      weight copies to exceed L2) beside its plain version, its bound (bytes
      or bf16 tensor-core passes, with the CUDA-core bound beside it), and
      float32 and bf16 torch.matmul of the dequantized weight.
+  10. packing — paper §4.6 on the main path's batch 0 and on a copy of it
+     whose edge list is padded to an odd length (the packed planes then 8-
+     but not 16-byte aligned in the buffer), at 8, 4 and 1 bits: the four
+     graph.packing transfers on the card, through the pinned staging
+     buffer; II's and III's adjacency equal to I's and to
+     make_device_batch's, the features equal to the host's, the unpacked
+     planes equal to the host's words, and the planes fed as A to
+     api.bitserial_mm_packed in both modes, equal to the plain engine.
+  11. fig9b — the three transfer strategies end to end, and the
+     features-only buffer, on that batch and on an ogbn-products batch
+     (scale 0.05, 1000 parts, 20 a batch); III split into host pack,
+     staging, H2D and device unpack + densify, the copy's rate against the
+     rate of one 256 MB pinned copy.
+  12. figures — repro_torch.benchmarks.run at the reference's default
+     sizes: fig7, fig8a, fig8b, fig8c, fig9a and fig9b, each line echoed as
+     JSON; a suite's failed check fails the script.
+
+Phases 3 and 4 run with the registry's fallback warning turned into an
+error: the main path must stay on the engine it asks for.
 
 The line before the last lists each kernel as JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import itertools
 import json
 import math
@@ -102,10 +123,15 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 DATASET, SCALE, PARTS, BATCH_PARTS, N_BATCHES = "ogbn-arxiv", 1.0, 1500, 20, 8
+# fig9b's second graph: ogbn-products at a scale whose parts are as large as
+# the main path's (~120 nodes), so that a batch of 20 holds >= 2048 nodes
+PRODUCTS_SCALE, PRODUCTS_PARTS = 0.05, 1000
+PACKING_BITS = (8, 4, 1)
 DEVICE = "cuda"
 BITS = (8, 4, 2)
 ST_PAIRS = ((1, 1), (1, 8), (2, 4), (3, 5), (8, 8))
@@ -208,47 +234,6 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout
     return out.strip().splitlines()[0]
-
-
-def time_ms(torch, fn, *, warmup=3, reps=10, repeats=5) -> float:
-    """Median over ``repeats`` of CUDA-event time per call over ``reps`` calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(repeats):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(reps):
-            fn()
-        e1.record()
-        e1.synchronize()
-        times.append(e0.elapsed_time(e1) / reps)
-    return statistics.median(times)
-
-
-def graph_ms(torch, fn, *, reps=50, repeats=5) -> float:
-    """Device time per call: ``reps`` calls captured in one CUDA graph, so
-    the host's launch cost is not in the number."""
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(repeats):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        graph.replay()
-        e1.record()
-        e1.synchronize()
-        times.append(e0.elapsed_time(e1) / reps)
-    return statistics.median(times)
 
 
 def roofline(nbytes, ops) -> tuple[float, str]:
@@ -1039,7 +1024,7 @@ def phase_main_path(torch, card):
                                  f"{fp_diff}")
         emit(phase="reference", model=name, qgtc8_card_vs_cpu_max_abs=diff,
              fp32_dense_vs_csr_max_abs=fp_diff, card=card)
-    return models, dbs, tiles, launches, logits
+    return models, batches, dbs, tiles, launches, logits
 
 
 def phase_main_path_mxu(torch, card, models, dbs, tiles, logits):
@@ -1797,6 +1782,140 @@ def phase_wq_timing(torch, card, packed) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def no_fallback():
+    """Run a path with the registry's fallback warning as an error: every op
+    must run on the engine the path asks for. The registry warns once per
+    (engine, op, fallback), so the record of earlier warnings is cleared."""
+    from repro_torch.api import registry
+
+    registry._warned_fallbacks.clear()
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message=".*falling back",
+                                category=RuntimeWarning)
+        yield
+
+
+def phase_packing(torch, card, batch, db):
+    """Paper §4.6 on the card: the four transfers of ``batch`` (the main
+    path's batch 0) and of a copy whose edge list is one column longer, an
+    odd length, at PACKING_BITS. Every result is held to the host's arrays
+    and to ``db`` (make_device_batch's), and the unpacked planes, a view at
+    word 8 + 2 e_cap of the copied buffer, are fed as A to the bit-serial
+    GEMM in both modes and held to the plain engine."""
+    import numpy as np
+
+    from repro_torch import api
+    from repro_torch.core import bitops
+    from repro_torch.graph import packing
+    from repro_torch.kernels import bitserial
+
+    odd = dataclasses.replace(batch, edges=np.concatenate(
+        [batch.edges, -np.ones((2, 1 + batch.edges.shape[1] % 2), np.int32)], 1))
+    gen = torch.Generator().manual_seed(21)
+    feats = torch.from_numpy(batch.features)
+    for b in (batch, odd):
+        e_cap = b.edges.shape[1]
+        adj_i, f_i = packing.transfer_dense(b, device=DEVICE)
+        adj_ii, f_ii = packing.transfer_sparse(b, device=DEVICE)
+        if not (torch.equal(adj_i, db["adj"]) and torch.equal(adj_ii, adj_i)):
+            raise AssertionError(f"packing e_cap={e_cap}: I/II adjacency differs")
+        if not (torch.equal(f_i.cpu(), feats) and torch.equal(f_ii.cpu(), feats)):
+            raise AssertionError(f"packing e_cap={e_cap}: features differ")
+        for nbits in PACKING_BITS:
+            adj_iii, planes, meta = packing.transfer_packed(b, nbits, device=DEVICE)
+            only, fmeta = packing.transfer_packed_feats(b, nbits, device=DEVICE)
+            if not torch.equal(adj_iii, adj_i):
+                raise AssertionError(f"packing {nbits}b e_cap={e_cap}: III "
+                                     f"adjacency differs from I's")
+            buf, _ = packing.pack_compound(b, nbits)
+            host = torch.from_numpy(buf[8 + 2 * e_cap:]).view(planes.shape)
+            if not (torch.equal(planes.cpu(), host) and torch.equal(only.cpu(), host)):
+                raise AssertionError(f"packing {nbits}b e_cap={e_cap}: unpacked "
+                                     f"planes differ from the host's words")
+            # the first layer's GEMM of qgtc-gcn, X (n, 128) @ W (128, 16)
+            w = torch.randint(0, 1 << nbits, (meta["d"], 16), generator=gen,
+                              dtype=torch.int32).to(DEVICE)
+            wp = bitops.pack_b(w, nbits)
+            want = api.bitserial_mm_packed(planes, wp, backend="popcount")
+            launched = {}
+            for mode in ("vpu", "mxu"):
+                before = dict(bitserial.LAUNCHES)
+                got = api.bitserial_mm_packed(planes, wp, backend="cuda",
+                                              policy=api.ExecutionPolicy(mode=mode))
+                launched[mode] = {k: v - before[k] for k, v in
+                                  bitserial.LAUNCHES.items() if v != before[k]}
+                if not torch.equal(got, want):
+                    raise AssertionError(f"packing {nbits}b e_cap={e_cap} "
+                                         f"{mode}: GEMM on the planes != plain")
+            if launched != {"vpu": {"bitserial_gemm": 1},
+                            "mxu": {"bitserial_gemm_mxu": 1}}:
+                raise AssertionError(f"packing GEMM launches {launched}")
+            emit(phase="packing", nbits=nbits, nodes=b.n_nodes, e_cap=e_cap,
+                 planes_byte_offset=4 * (8 + 2 * e_cap),
+                 planes_addr_mod16=planes.data_ptr() % 16,
+                 adjacency_equal=True, planes_equal_host=True,
+                 gemm_equal_plain={"vpu": True, "mxu": True},
+                 launches=launched, bytes=packing.compound_nbytes(b, nbits),
+                 card=card)
+
+
+def _quiet(fn, **kw):
+    """``fn(**kw)`` with the CSV a figure suite prints kept off stdout."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(**kw)
+
+
+def phase_fig9b(torch, card, arxiv_batch):
+    """Paper Fig. 9b on the card: the three strategies and the features-only
+    buffer, end to end, on the main path's batch 0 and on an ogbn-products
+    batch of >= 2048 nodes, with III's split and the share of the link."""
+    from repro_torch.benchmarks import common, fig9b_transfer
+    from repro_torch.graph import batching, datasets, partition
+
+    t0 = time.perf_counter()
+    data = datasets.load("ogbn-products", scale=PRODUCTS_SCALE, seed=0)
+    parts = partition.partition(data.csr, PRODUCTS_PARTS)
+    products = batching.make_batches(data, parts, BATCH_PARTS)[0]
+    if products.n_nodes < 2048:
+        raise AssertionError(f"ogbn-products batch of {products.n_nodes} nodes")
+    link = fig9b_transfer.link_peak_bytes_s(DEVICE)
+    emit(phase="fig9b_setup", products_scale=PRODUCTS_SCALE,
+         products_parts=PRODUCTS_PARTS, products_nodes=products.n_nodes,
+         products_edges=int(products.edges.shape[1]),
+         arxiv_nodes=arxiv_batch.n_nodes,
+         arxiv_edges=int(arxiv_batch.edges.shape[1]),
+         link_peak_GB_s=link / 1e9, setup_s=time.perf_counter() - t0, card=card)
+    start = len(common.RECORDS)
+    _quiet(fig9b_transfer.run, batches={"ogbn-arxiv": arxiv_batch,
+                                        "ogbn-products": products},
+           nbits=8, device=DEVICE, link_bytes_s=link)
+    records = common.RECORDS[start:]
+    for r in records:
+        emit(phase="fig9b", **r, card=card)
+    ms = {r["name"]: r["value"] for r in records}
+    for name in ("ogbn-arxiv", "ogbn-products"):
+        order = sorted(("I_dense", "II_sparse", "III_packed"),
+                       key=lambda k: ms[f"fig9b_{name}_{k}"])
+        emit(phase="fig9b_order", graph=name, fastest_first=order, card=card)
+
+
+def phase_figures(torch, card):
+    """The paper-figure suites at the reference's default sizes, on the
+    card; each record echoed. A suite's failed check raises."""
+    from repro_torch.benchmarks import run
+
+    t0 = time.perf_counter()
+    records = _quiet(run.main, device=DEVICE)
+    for r in records:
+        emit(phase="figures", **r, card=card)
+    suites = sorted({r["suite"] for r in records})
+    if suites != sorted(name for name, _ in run.SUITES):
+        raise AssertionError(f"figures: suites that ran {suites}")
+    emit(phase="figures_done", suites=suites, records=len(records),
+         seconds=time.perf_counter() - t0, card=card)
+
+
 def main() -> int:
     import torch
 
@@ -1808,6 +1927,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO / "src"))
+    # the port's timing method, used by every phase
+    global graph_ms, time_ms
+    from repro_torch.perf.report import graph_ms, time_ms
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1831,16 +1953,19 @@ def main() -> int:
     vpu_tile_errs = phase_vpu_tiles_vs_plain(torch, card)
     for name, err in vpu_tile_errs.items():
         errs[name] = max(errs[name], err)
-    # each path runs with every count at 0 just before it and read after it
-    models, dbs, tiles, path_launches, logits = phase_main_path(torch, card)
-    launches = {"bitserial_gemm": path_launches}
-    launches["bitserial_gemm_mxu"] = phase_main_path_mxu(
-        torch, card, models, dbs, tiles, logits)
-    del logits
-    api_launches, kept = phase_tensor_api(torch, card, models, dbs)
-    launches.update({k: api_launches[k] for k in ("bitserial_fused", "bgemm",
-                                                   "bitpack")})
-    mxu_launches = phase_tensor_api_mxu(torch, card, kept)
+    # each path runs with every count at 0 just before it and read after it,
+    # and never leaves the engine it asks for
+    with no_fallback():
+        models, batches, dbs, tiles, path_launches, logits = phase_main_path(
+            torch, card)
+        launches = {"bitserial_gemm": path_launches}
+        launches["bitserial_gemm_mxu"] = phase_main_path_mxu(
+            torch, card, models, dbs, tiles, logits)
+        del logits
+        api_launches, kept = phase_tensor_api(torch, card, models, dbs)
+        launches.update({k: api_launches[k] for k in ("bitserial_fused", "bgemm",
+                                                       "bitpack")})
+        mxu_launches = phase_tensor_api_mxu(torch, card, kept)
     launches.update({k: mxu_launches[k] for k in ("bitserial_fused_mxu",
                                                    "bgemm_mxu")})
     del kept
@@ -1850,6 +1975,9 @@ def main() -> int:
     phase_bitpack_timing(torch, card)
     phase_fig9a(torch, card, dbs)
     phase_profile(torch, card, models, dbs)
+    phase_packing(torch, card, batches[0], dbs[0])
+    phase_fig9b(torch, card, batches[0])
+    phase_figures(torch, card)
     # the kernels line carries wq_gemm at the gate projection, batch 1
     timing["wq_gemm"] = phase_wq_timing(torch, card, wq_packed)[("wg", 1)]
 

@@ -27,7 +27,7 @@ within the float32 bound K * 2^-24 * (|x| @ |W|) around a float64 product
 on its own (two kernels may round differently, so they are not compared
 with each other), else the script exits non-zero. Then each library runs
 under a CUDA graph of 50 launches
-(``chip_smoke.graph_ms``) in turns: this, OTHER..., OTHER... reversed,
+(``repro_torch.perf.report.graph_ms``) in turns: this, OTHER..., OTHER... reversed,
 this, each time the mean of its two turns. One JSON line a case, after the
 card's name and power limit and the launch floor (an empty kernel,
 ``torch.cuda._sleep(0)``, under the same graph).
@@ -197,12 +197,13 @@ def main(argv) -> int:
         print(__doc__, file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO / "src"))
+    from repro_torch.perf.report import graph_ms
     card = chip_smoke.card_line()
     print(card, flush=True)
     libs = _libraries(argv)
     labels = list(libs)
     order = labels + labels[::-1]
-    print(json.dumps({"launch_floor_ms": chip_smoke.graph_ms(
+    print(json.dumps({"launch_floor_ms": graph_ms(
         torch, lambda: torch.cuda._sleep(0)), "card": card}), flush=True)
     for case, name, out, args, want, _keep in _cases(torch):
 
@@ -224,7 +225,7 @@ def main(argv) -> int:
                 raise AssertionError(f"{case} {name}: {label} != plain")
         turns = {label: [] for label in labels}
         for label in order:
-            turns[label].append(chip_smoke.graph_ms(torch, lambda lib=libs[label]: run(lib)))
+            turns[label].append(graph_ms(torch, lambda lib=libs[label]: run(lib)))
         print(json.dumps({"case": case, "kernel": name,
                           "ms": {k: sum(v) / len(v) for k, v in turns.items()},
                           "turns_ms": turns,

@@ -19,12 +19,11 @@ layouts (``core.bitops.pack_a`` / ``pack_b``):
 Dispatch strips ``tiles=`` for an engine without the flag: jumping
 changes the schedule, never the result.
 
-An engine that lacks an op raises ``UnsupportedOpError``: dispatch never
-falls back to another engine. That is a departure from the reference,
-whose registry serves ``wq_mm`` on its default ``pallas`` engine by falling
-back to ``xla_dot`` (``tests/test_api_dispatch.py``,
-``test_wq_mm_dispatch_and_fallback``). Here the ``cuda`` engine provides
-``wq_mm`` itself, and ``popcount`` raises for it.
+An engine that lacks an op is replaced by the first registered one that
+has it, unless the caller named it with ``backend=``; then it raises
+``UnsupportedOpError`` (``api.registry.resolve``, as in the reference).
+The ``cuda`` engine provides ``wq_mm`` itself, so the default engine
+serves it without falling back.
 """
 from __future__ import annotations
 

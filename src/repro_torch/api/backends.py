@@ -10,14 +10,16 @@
               plain version.
 
 torch_dot and cuda provide ``wq_mm`` with the same float matmul over the
-int8 ``WeightQ`` (the reference's xla_dot einsum): the reference serves it
-on its kernel engine by falling back to xla_dot, and the port never falls
-back. popcount lacks it and raises, as in the reference.
+int8 ``WeightQ`` (the reference's xla_dot einsum), so the default engine
+serves it without a fallback. popcount lacks it: under ``use("popcount")``
+dispatch falls back to torch_dot, and an explicit ``backend="popcount"``
+raises, as in the reference.
 
 All three return IDENTICAL int32 results for any (s, t) in 1..8; torch_dot
 and popcount take operands of up to 32 bits, as the reference's xla_dot
-and popcount do, and the cuda engine raises above 8 (its kernel shifts by
-p + q < 32), because dispatch never falls back.
+and popcount do. The cuda engine supports at most 8 (its kernel shifts by
+p + q < 32): wider operands fall back to torch_dot unless ``backend="cuda"``
+was asked for, which raises.
 """
 from __future__ import annotations
 

@@ -8,12 +8,20 @@
 
 Backend: explicit ``backend=`` > ``use()`` context > ``set_default`` >
 ``cuda``, the kernel engine. Policy: explicit ``policy=`` > ``use()`` >
-``set_default`` > DEFAULT_POLICY. Unlike the reference, an engine that
-cannot run the op is never replaced by another one: ``resolve`` raises.
+``set_default`` > DEFAULT_POLICY.
+
+Fallback, as in the reference: if the context or default engine cannot
+run an op (probed via ``Backend.supports``), the first *registered* engine
+that can is used (torch_dot, popcount, cuda, in that order), with a
+RuntimeWarning once per (engine, op, fallback) triple. An *explicitly*
+requested engine never falls back: it raises, so tests pin engines. The
+fallback is by capability only; a kernel that fails to build or launch
+raises, whatever engine was asked for.
 """
 from __future__ import annotations
 
 import contextvars
+import warnings
 
 from repro_torch.api.backend import Backend, UnsupportedOpError
 from repro_torch.api.policy import DEFAULT_POLICY, ExecutionPolicy
@@ -24,13 +32,14 @@ __all__ = ["register", "get_backend", "list_backends", "use", "set_default",
 DEFAULT_BACKEND = "cuda"
 
 _REGISTRY: dict[str, Backend] = {}
-_ORDER: list[str] = []  # registration order, for list_backends
+_ORDER: list[str] = []  # registration order = fallback priority
 
 # Process-wide default (mutable via set_default); the contextvar holds
 # scoped overrides as (backend_name | None, policy | None).
 _default: tuple[str, ExecutionPolicy] = (DEFAULT_BACKEND, DEFAULT_POLICY)
 _active: contextvars.ContextVar[tuple[str | None, ExecutionPolicy | None] | None] = \
     contextvars.ContextVar("repro_torch_api_active", default=None)
+_warned_fallbacks: set = set()
 
 
 def register(backend: Backend, *, override: bool = False) -> Backend:
@@ -105,13 +114,36 @@ def current() -> tuple[Backend, ExecutionPolicy]:
 def resolve(op: str, *, backend: str | Backend | None = None,
             policy: ExecutionPolicy | None = None,
             s: int = 1, t: int = 1) -> tuple[Backend, ExecutionPolicy]:
-    """Pick the backend and policy for one op call; raise if the chosen
-    backend cannot run it."""
+    """Pick the backend and policy for one op call.
+
+    Explicit ``backend=`` pins the engine (raises if it cannot run the
+    op); otherwise the context or default engine is used, falling back
+    across the registry in registration order when it lacks the
+    capability. Raises when no engine can run the op.
+    """
     cur_be, cur_pol = current()
-    be = get_backend(backend) if backend is not None else cur_be
-    if not be.supports(op, s=s, t=t):
-        raise UnsupportedOpError(
-            f"backend {be.name!r} does not support {op} with s={s}, t={t} "
-            f"(capabilities: {sorted(be.capabilities)}, bits "
-            f"{be.min_bits}..{be.max_bits})")
-    return be, policy if policy is not None else cur_pol
+    pol = policy if policy is not None else cur_pol
+    if backend is not None:
+        be = get_backend(backend)
+        if not be.supports(op, s=s, t=t):
+            raise UnsupportedOpError(
+                f"backend {be.name!r} does not support {op} with s={s}, t={t} "
+                f"(capabilities: {sorted(be.capabilities)}, bits "
+                f"{be.min_bits}..{be.max_bits})")
+        return be, pol
+    if cur_be.supports(op, s=s, t=t):
+        return cur_be, pol
+    for name in _ORDER:
+        cand = _REGISTRY[name]
+        if cand.supports(op, s=s, t=t):
+            key = (cur_be.name, op, name)
+            if key not in _warned_fallbacks:
+                _warned_fallbacks.add(key)
+                warnings.warn(
+                    f"backend {cur_be.name!r} does not support {op} with "
+                    f"s={s}, t={t}; falling back to {name!r}", RuntimeWarning,
+                    stacklevel=3)
+            return cand, pol
+    raise UnsupportedOpError(
+        f"no registered backend supports {op} with s={s}, t={t} "
+        f"(registered: {sorted(_REGISTRY)})")

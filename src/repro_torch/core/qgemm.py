@@ -74,7 +74,8 @@ def wq_matmul(x: torch.Tensor, wq: WeightQ, out_dtype=torch.bfloat16, *,
     """x (..., K) float @ quantized W (K, N) with affine correction.
 
     y = (x @ q) * scale + rowsum(x) * zero. Routed through the
-    ``repro_torch.api`` registry; an engine without ``wq_mm`` raises.
+    ``repro_torch.api`` registry: a context engine without ``wq_mm`` falls
+    back to one with it, an explicit ``backend=`` without it raises.
     """
     from repro_torch import api
 

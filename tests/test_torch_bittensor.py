@@ -9,6 +9,8 @@ both packages take the same IEEE float32 steps. The reference's matmuls run
 on its ``pallas`` backend in interpret mode. Shapes stay small: Pallas
 interpret retraces per shape.
 """
+import warnings
+
 import numpy as np
 import pytest
 
@@ -22,6 +24,7 @@ from repro.core import bittensor as jbt  # noqa: E402
 from repro.core.quantize import calibrate as jcalibrate  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch import api  # noqa: E402
+from repro_torch.api import registry  # noqa: E402
 from repro_torch.convert import bittensor_from_jax  # noqa: E402
 from repro_torch.core import bitops, bittensor as bt  # noqa: E402
 from repro_torch.core.qgemm import qgemm  # noqa: E402
@@ -135,8 +138,9 @@ def test_bitmm2int_checks_layout():
 @pytest.mark.parametrize("engine", ["torch_dot", "popcount"])
 def test_wide_bitwidths_exact_where_the_reference_is(engine):
     """The >8-bit repair: a 12-bit x 10-bit product is exact on torch_dot
-    and popcount and equals the reference's bitmm2int, and the cuda engine
-    raises: dispatch never falls back."""
+    and popcount and equals the reference's bitmm2int. The cuda engine
+    raises when named with ``backend=``; its fallback is tested in
+    test_wide_bitwidths_fall_back_off_the_kernel_engine."""
     a, b = _pair(12, 10, m=5, k=40, n=4, seed=8)
     jwant = np.asarray(jbt.bitmm2int(jbt.to_bit(jnp.asarray(a), 12, pack_axis=1),
                                      jbt.to_bit(jnp.asarray(b), 10, pack_axis=0),
@@ -154,6 +158,37 @@ def test_wide_bitwidths_exact_where_the_reference_is(engine):
     with pytest.raises(api.UnsupportedOpError, match="s=12, t=10"):
         api.bitserial_mm(torch.as_tensor(a), torch.as_tensor(b), 12, 10,
                          backend="cuda")
+
+
+def test_wide_bitwidths_fall_back_off_the_kernel_engine(monkeypatch):
+    """With no ``backend=``, a 12-bit x 10-bit product on the default cuda
+    engine falls back to torch_dot, the first registered engine that takes
+    it, with one RuntimeWarning, and is the exact ``a @ b``, as in the
+    reference."""
+    monkeypatch.setattr(registry, "_warned_fallbacks", set())
+    a, b = _pair(12, 10, m=5, k=40, n=4, seed=8)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        jwant = np.asarray(japi.bitserial_mm(jnp.asarray(a), jnp.asarray(b), 12, 10))
+    ta, tb = torch.as_tensor(a), torch.as_tensor(b)
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        got = api.bitserial_mm(ta, tb, 12, 10)
+        again = qgemm(ta, tb, 12, 10)
+        packed = bt.bitmm2int(bt.to_bit(ta, 12, pack_axis=1),
+                              bt.to_bit(tb, 10, pack_axis=0))
+    assert [str(w.message) for w in seen] == [
+        "backend 'cuda' does not support bitserial_mm with s=12, t=10; "
+        "falling back to 'torch_dot'"]
+    assert all(w.category is RuntimeWarning for w in seen)
+    for y in (got, again, packed):
+        assert y.dtype == torch.int32
+        np.testing.assert_array_equal(y.numpy(), a.astype(np.int64) @ b)
+    np.testing.assert_array_equal(got.numpy(), jwant)
+    # within 8 bits the default engine serves the op itself: no warning
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        api.bitserial_mm(ta & 255, tb & 255, 8, 8)
 
 
 @pytest.mark.parametrize("jump", ["none", "compact", "sgt"])

@@ -910,3 +910,96 @@ def test_vpu_one_hot_words(cuda_device, tile, s, t):
 def test_mxu_one_hot_words(cuda_device, tile, s, t):
     """One-hot words through the 'mxu' kernels (_one_hot_words)."""
     _one_hot_words(cuda_device, _mxu_policy(tile), s, t)
+
+
+# ------------------------------------- §4.6 subgraph packing and the figures
+
+def _packing_batch(odd):
+    from repro_torch.graph import batching, datasets, partition
+
+    data = datasets.load("proteins", scale=0.02, seed=2)
+    parts = partition.partition(data.csr, 4)
+    b = batching.make_batches(data, parts, batch_size=2, tile=64,
+                              shuffle=False)[0]
+    if odd:
+        b = dataclasses.replace(b, edges=np.concatenate(
+            [b.edges, -np.ones((2, 1 + b.edges.shape[1] % 2), np.int32)], 1))
+    return b
+
+
+@pytest.mark.parametrize("odd", [False, True], ids=["even_e_cap", "odd_e_cap"])
+@pytest.mark.parametrize("nbits", [1, 8])
+def test_transfers_on_card_equal_cpu(cuda_device, odd, nbits):
+    from repro_torch.graph import packing
+
+    b = _packing_batch(odd)
+    for fn in (packing.transfer_dense, packing.transfer_sparse):
+        for got, want in zip(fn(b, device=cuda_device), fn(b, device="cpu")):
+            assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
+    adj, planes, meta = packing.transfer_packed(b, nbits, device=cuda_device)
+    cadj, cplanes, cmeta = packing.transfer_packed(b, nbits, device="cpu")
+    assert meta == cmeta and torch.equal(adj.cpu(), cadj)
+    assert torch.equal(planes.cpu(), cplanes)
+    assert planes.data_ptr() % 16 == (8 if odd else 0)
+    feats, fmeta = packing.transfer_packed_feats(b, nbits, device=cuda_device)
+    assert torch.equal(feats.cpu(), cplanes) and fmeta["e_cap"] == 0
+
+
+def test_staging_buffer_is_reused_and_grown(cuda_device):
+    from repro_torch.graph import packing
+
+    b = _packing_batch(False)
+    packing._STAGING.pop(cuda_device, None)  # start with no buffer
+    packing.transfer_packed(b, 8, device=cuda_device)
+    slot = packing._STAGING[cuda_device]
+    first = slot.buf.data_ptr(), slot.buf.numel()
+    out = [packing.transfer_packed(b, 8, device=cuda_device)[1] for _ in range(3)]
+    assert (slot.buf.data_ptr(), slot.buf.numel()) == first  # reused
+    packing.transfer_dense(b, device=cuda_device)  # more bytes: grown
+    assert slot.buf.numel() > first[1]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, out[0]) for o in out)
+    assert slot.done.query()
+
+
+@pytest.mark.parametrize("mode", ["vpu", "mxu"])
+@pytest.mark.parametrize("nbits", [1, 4, 8])
+def test_unpacked_planes_feed_the_kernels_on_card(cuda_device, mode, nbits):
+    """The planes, a view 8- but not 16-byte aligned into the copied buffer
+    (odd e_cap), as A of both modes' kernels: equal to the plain engine."""
+    from repro_torch.graph import packing
+
+    _, planes, meta = packing.transfer_packed(_packing_batch(True), nbits,
+                                              device=cuda_device)
+    assert planes.data_ptr() % 16 == 8
+    rng = np.random.default_rng(nbits)
+    w = torch.as_tensor(rng.integers(0, 1 << nbits, (meta["d"], 16)),
+                        dtype=torch.int32, device=cuda_device)
+    wp = bitops.pack_b(w, nbits)
+    name = "bitserial_gemm" + ("_mxu" if mode == "mxu" else "")
+    before = LAUNCHES[name]
+    got = api.bitserial_mm_packed(planes, wp, backend="cuda",
+                                  policy=api.ExecutionPolicy(mode=mode))
+    assert LAUNCHES[name] == before + 1
+    want = api.bitserial_mm_packed(planes, wp, backend="popcount")
+    assert torch.equal(got, want)
+
+
+def test_figure_suites_run_on_card_at_smoke_sizes(cuda_device):
+    import contextlib
+    import io
+
+    from repro_torch.benchmarks import run
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        records = run.main(device=cuda_device, smoke=True)
+    assert {r["suite"] for r in records} == {s for s, _ in run.SUITES}
+    assert any(r["name"] == "fig9b_link_peak" for r in records)
+
+
+def test_bench_median_times_the_card_with_events(cuda_device):
+    from repro_torch.perf.report import bench_median
+
+    x = torch.ones((2048, 2048), device=cuda_device)
+    t = bench_median(torch.matmul, x, x, warmup=2, iters=5)
+    assert 0 < t < 1

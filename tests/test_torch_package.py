@@ -4,7 +4,9 @@
   ``compare_kernels.py``, imports JAX or the JAX package ``repro``.
 - Entry points run on the card unless the caller asks for the CPU: without
   a card they raise.
-- ``resolve`` raises instead of falling back to another engine.
+- ``resolve`` raises for an engine named with ``backend=`` that cannot
+  run the op, and otherwise falls back to the first registered engine
+  that can, with one warning.
 - The ``tiles=`` contract: a non-int ``s_max`` is a TypeError, an unknown
   tag a ValueError, and tiles > occupancy > recompute.
 """
@@ -13,6 +15,7 @@ import os
 import pathlib
 import subprocess
 import sys
+import warnings
 
 import numpy as np
 import pytest
@@ -20,11 +23,13 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import api  # noqa: E402
+from repro_torch.api import registry  # noqa: E402
 from repro_torch.api.backend import Backend, UnsupportedOpError  # noqa: E402
+from repro_torch.benchmarks import fig9b_transfer, run  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.core import bitops, zerotile  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
-from repro_torch.graph import batching, datasets, partition  # noqa: E402
+from repro_torch.graph import batching, datasets, packing, partition  # noqa: E402
 from repro_torch.kernels import bitserial, ops  # noqa: E402
 from repro_torch.models import gnn  # noqa: E402
 from repro_torch.train import trainer  # noqa: E402
@@ -93,11 +98,27 @@ def test_entry_points_need_a_card_unless_told_cpu(no_card):
     b = batching.make_batches(data, partition.partition(data.csr, 2), 1)[0]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         trainer.make_device_batch(b)
+    transfers = (packing.transfer_dense, packing.transfer_sparse,
+                 packing.transfer_packed, packing.transfer_packed_feats)
+    for transfer in transfers:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            transfer(b)
+    # every figure suite and the runner, before any work
+    for _, suite in run.SUITES:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            suite()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run.main()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fig9b_transfer.run({"batch": b})
     # asked for the CPU, every entry point works there
     assert resolve_device("cpu").type == "cpu"
     params = gnn.init_params(cfg, generator=gen, device="cpu")
     assert all(v.device.type == "cpu" for p in params.values() for v in p.values())
     assert trainer.make_device_batch(b, device="cpu")["adj"].device.type == "cpu"
+    for transfer in transfers:
+        out = transfer(b, device="cpu")
+        assert out[0].device.type == "cpu"
     assert params_from_jax({"layer0": {"w": np.zeros((2, 2))}},
                            device="cpu")["layer0"]["w"].dtype == torch.float32
 
@@ -119,7 +140,8 @@ class _NoOps(Backend):
     name = "test-no-ops"
 
 
-def test_resolve_raises_instead_of_falling_back():
+def test_resolve_raises_instead_of_falling_back(monkeypatch):
+    monkeypatch.setattr(registry, "_warned_fallbacks", set())
     be = _NoOps()
     with pytest.raises(UnsupportedOpError, match="test-no-ops"):
         api.resolve("bitserial_mm", backend=be)
@@ -130,8 +152,17 @@ def test_resolve_raises_instead_of_falling_back():
     x = torch.ones((4, 4), dtype=torch.int32)
     with pytest.raises(UnsupportedOpError):
         api.bitserial_mm(x, x, 1, 1, backend=be)
-    with api.use("cuda"), pytest.raises(UnsupportedOpError, match="s=9"):
-        api.bitserial_mm(x, x, 9, 1)
+    # the context engine falls back, by capability, to the first
+    # registered engine that takes the op, as the reference's does
+    with api.use("cuda"), pytest.warns(RuntimeWarning, match="falling back to 'torch_dot'"):
+        assert api.resolve("bitserial_mm", s=9)[0].name == "torch_dot"
+    with api.use("cuda"), warnings.catch_warnings():
+        warnings.simplefilter("error")  # once per (engine, op, fallback)
+        assert torch.equal(api.bitserial_mm(x, x, 9, 1),
+                           api.bitserial_mm(x, x, 9, 1, backend="torch_dot"))
+    # no engine takes 33 bits: nothing to fall back to
+    with pytest.raises(UnsupportedOpError, match="no registered backend.*s=33"):
+        api.resolve("bitserial_mm", s=33)
     with pytest.raises(KeyError, match="unknown backend"):
         api.bitserial_mm(x, x, 1, 1, backend="pallas")
     assert api.current()[0].name == api.DEFAULT_BACKEND == "cuda"

@@ -21,6 +21,8 @@ The reference's Pallas ``wq_gemm`` runs in interpret mode, as its own tests
 run it on the CPU. The CUDA kernel is held against the plain version on the
 card in tests/test_torch_cuda.py.
 """
+import warnings
+
 import numpy as np
 import pytest
 
@@ -37,7 +39,7 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels import wqmm as jwqmm  # noqa: E402
 from repro_torch import api  # noqa: E402
-from repro_torch.api import nn  # noqa: E402
+from repro_torch.api import nn, registry  # noqa: E402
 from repro_torch.convert import weightq_from_jax  # noqa: E402
 from repro_torch.core.qgemm import (weight_dequantize, weight_quantize,  # noqa: E402
                                     wq_matmul)
@@ -257,22 +259,59 @@ def test_wq_mm_default_dtype_is_bfloat16_as_in_the_reference():
                                rtol=2 ** -8, atol=ATOL)
 
 
-def test_wq_mm_raises_on_an_engine_without_it():
-    """The port never falls back: popcount lacks wq_mm and raises, where
-    the reference's registry would hand the call to xla_dot."""
+def test_wq_mm_raises_on_an_engine_without_it(monkeypatch):
+    """popcount lacks wq_mm: named with ``backend=`` it raises; as the
+    context engine, dispatch falls back to torch_dot with one
+    RuntimeWarning, as the reference's registry hands the call to xla_dot."""
+    monkeypatch.setattr(registry, "_warned_fallbacks", set())
     rng = np.random.default_rng(0)
     _, pw = _weightq_pair(rng, 32, 8, 4)
     x = torch.as_tensor(rng.normal(size=(2, 32)).astype(np.float32))
     with pytest.raises(api.UnsupportedOpError, match="popcount"):
         api.wq_mm(x, pw, backend="popcount")
-    with api.use("popcount"), pytest.raises(api.UnsupportedOpError, match="wq_mm"):
-        wq_matmul(x, pw)
-    with api.use("popcount"), pytest.raises(api.UnsupportedOpError):
-        nn.wq_linear(x, pw)
+    want = wq_matmul(x, pw, backend="torch_dot")
+    with api.use("popcount"), pytest.warns(
+            RuntimeWarning, match="'popcount' does not support wq_mm.*'torch_dot'"):
+        got = wq_matmul(x, pw)
+    assert torch.equal(got, want)
+    # the warning is given once per (engine, op, fallback)
+    with api.use("popcount"), warnings.catch_warnings():
+        warnings.simplefilter("error")
+        assert torch.equal(nn.wq_linear(x, pw),
+                           nn.wq_linear(x, pw, backend="torch_dot"))
     assert "wq_mm" in api.OPS
     assert api.get_backend("torch_dot").supports("wq_mm", s=8, t=8)
     assert api.get_backend("cuda").supports("wq_mm", s=4, t=4)
     assert not api.get_backend("popcount").supports("wq_mm")
+
+
+def test_wq_mm_falls_back_as_the_reference_does(monkeypatch):
+    """The reference's ``test_wq_mm_dispatch_and_fallback`` input: under
+    ``use("popcount")`` both registries serve wq_matmul on their plain
+    float engine, and the products agree within float32 rounding."""
+    monkeypatch.setattr(registry, "_warned_fallbacks", set())
+    rng = np.random.default_rng(9)
+    x = rng.normal(size=(4, 64)).astype(np.float32)
+    w = rng.normal(size=(64, 16)).astype(np.float32)
+    jw = jweight_quantize(jnp.asarray(w), 8)
+    with japi.use("popcount"), warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        want = np.asarray(jwq_matmul(jnp.asarray(x), jw, out_dtype=jnp.float32))
+    pw = weightq_from_jax(*_jweightq_fields(jw), device="cpu")
+    with api.use("popcount"), warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        got = wq_matmul(torch.as_tensor(x), pw, out_dtype=torch.float32)
+        again = wq_matmul(torch.as_tensor(x), pw, out_dtype=torch.float32)
+    assert [str(w.message) for w in seen] == [
+        "backend 'popcount' does not support wq_mm with s=8, t=8; "
+        "falling back to 'torch_dot'"]
+    assert got.shape == (4, 16) and torch.equal(got, again)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    # the port's weight_quantize gives the same WeightQ as the reference's
+    with api.use("popcount"):
+        mine = wq_matmul(torch.as_tensor(x), weight_quantize(torch.as_tensor(w), 8),
+                         out_dtype=torch.float32)
+    np.testing.assert_allclose(mine.numpy(), want, rtol=RTOL, atol=ATOL)
 
 
 # ------------------------------------------------------ quantize_lm_params
