@@ -104,9 +104,26 @@ without printing a result:
   12. figures — repro_torch.benchmarks.run at the reference's default
      sizes: fig7, fig8a, fig8b, fig8c, fig9a and fig9b, each line echoed as
      JSON; a suite's failed check fails the script.
+  13. training — Cluster-GCN QAT at full width: qgtc-gcn (128->16->16->40)
+     on the main path's graph and parts, every batch through
+     trainer.prepare_batches (20 diagonal blocks a batch). The blocked
+     aggregation of batches 0 and 1 equal to the dense adjacency product
+     at 1/4/8 bits, in both modes and with zero-tile artifacts. One
+     int_bitserial step on the kernel engine and the same step on the
+     plain torch_dot engine, from the same params and generator state,
+     with grad_bits 0 and 8 and stochastic rounding off and on, at 'vpu'
+     and 'mxu': loss, gradients and updated params and AdamW moments bit-
+     equal, and the kernel launched as often as the step's GEMMs. Then
+     trainer.train for a few steps of three runs (fake-quant 8-bit,
+     int_bitserial 8-bit, int_bitserial with 8-bit gradients and
+     stochastic rounding): first and last loss finite, launches per step;
+     ms per step (CUDA events, each step synchronized), host ms per step;
+     three steps each under torch.profiler (device ms, idle share). Then
+     Table 2 through repro_torch.benchmarks.run at the reference's sizes:
+     each cell's test accuracy and the suite's seconds.
 
-Phases 3 and 4 run with the registry's fallback warning turned into an
-error: the main path must stay on the engine it asks for.
+Phases 3, 4 and 13 run with the registry's fallback warning turned into
+an error: a path must stay on the engine it asks for.
 
 The line before the last lists each kernel as JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -131,6 +148,19 @@ DATASET, SCALE, PARTS, BATCH_PARTS, N_BATCHES = "ogbn-arxiv", 1.0, 1500, 20, 8
 # fig9b's second graph: ogbn-products at a scale whose parts are as large as
 # the main path's (~120 nodes), so that a batch of 20 holds >= 2048 nodes
 PRODUCTS_SCALE, PRODUCTS_PARTS = 0.05, 1000
+# training at full width: qgtc-gcn on the main path's batches (1500 parts,
+# 20 a batch through trainer.prepare_batches), 8 bits
+TRAIN_BITS = 8
+TRAIN_STEPS = 6           # steps of each trainer.train run
+TRAIN_TIMED_STEPS = 10    # steps timed one by one, after 2 unmeasured ones
+TRAIN_PROFILED_STEPS = 3
+TRAIN_RUNS = (("fake8", dict(path="fake")),
+              ("int8", dict(path="int_bitserial")),
+              ("int8_g8_sr", dict(path="int_bitserial", grad_bits=8,
+                                  stochastic=True)))
+# the int path's steps held to the plain engine: (grad_bits, stochastic)
+TRAIN_EQUAL = ((0, False), (8, False), (8, True))
+TRAIN_OPT = dict(lr=1e-2, weight_decay=1e-4, grad_clip=1.0)  # trainer.train's
 PACKING_BITS = (8, 4, 1)
 DEVICE = "cuda"
 BITS = (8, 4, 2)
@@ -1024,7 +1054,7 @@ def phase_main_path(torch, card):
                                  f"{fp_diff}")
         emit(phase="reference", model=name, qgtc8_card_vs_cpu_max_abs=diff,
              fp32_dense_vs_csr_max_abs=fp_diff, card=card)
-    return models, batches, dbs, tiles, launches, logits
+    return models, batches, dbs, tiles, launches, logits, data, parts
 
 
 def phase_main_path_mxu(torch, card, models, dbs, tiles, logits):
@@ -1902,18 +1932,258 @@ def phase_fig9b(torch, card, arxiv_batch):
 
 def phase_figures(torch, card):
     """The paper-figure suites at the reference's default sizes, on the
-    card; each record echoed. A suite's failed check raises."""
+    card; each record echoed. A suite's failed check raises. Table 2 runs
+    in the training phase."""
     from repro_torch.benchmarks import run
 
     t0 = time.perf_counter()
-    records = _quiet(run.main, device=DEVICE)
+    figures = [name for name, _ in run.SUITES if name != "table2"]
+    records = _quiet(run.main, device=DEVICE, suites=figures)
     for r in records:
         emit(phase="figures", **r, card=card)
     suites = sorted({r["suite"] for r in records})
-    if suites != sorted(name for name, _ in run.SUITES):
+    if suites != sorted(figures):
         raise AssertionError(f"figures: suites that ran {suites}")
     emit(phase="figures_done", suites=suites, records=len(records),
          seconds=time.perf_counter() - t0, card=card)
+
+
+def int_launches_per_step(layers: int, blocks: int, grad_bits: int) -> int:
+    """Bit-serial GEMM launches of one int_bitserial step of a GCN: forward,
+    each layer's feature GEMM and one GEMM per diagonal block; with
+    grad_bits, each layer's weight-gradient GEMM, its input-gradient GEMM
+    (not at layer 0, whose input needs no gradient) and one GEMM per
+    transposed block."""
+    forward = layers * (1 + blocks)
+    if not grad_bits:
+        return forward
+    return forward + layers + (layers - 1) + layers * blocks
+
+
+def int_step(torch, params, db, cfg, gen_state, *, grad_bits, stochastic,
+             device):
+    """One int_bitserial step on the active engine, from ``params``, fresh
+    AdamW state and a ``device`` generator at ``gen_state`` (trainer.train's
+    update): [loss, gradients..., updated params..., first moments...,
+    second moments...], in the params' order."""
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import trainer
+
+    gen = torch.Generator(device=device)
+    gen.set_state(gen_state)
+    names = [(layer, k) for layer in params for k in params[layer]]
+    p = {layer: {k: v.detach().requires_grad_() for k, v in ps.items()}
+         for layer, ps in params.items()}
+    loss, _ = trainer.loss_fn(p, db, cfg, False, "int_bitserial", grad_bits,
+                              stochastic, gen if stochastic else None)
+    gs = torch.autograd.grad(loss, [p[layer][k] for layer, k in names])
+    grads = {layer: {} for layer in params}
+    for (layer, k), g in zip(names, gs):
+        grads[layer][k] = g
+    new, state = opt.adamw_update(params, grads, opt.adamw_init(params),
+                                  opt.AdamWConfig(**TRAIN_OPT))
+    return ([loss.detach(), *gs] + [new[layer][k] for layer, k in names]
+            + [state[m][layer][k] for m in ("mu", "nu") for layer, k in names])
+
+
+def _int_dbatch(torch, batch, art):
+    return {"art": art, "y": torch.as_tensor(batch.labels, device=DEVICE),
+            "mask": torch.as_tensor(batch.train_mask, device=DEVICE)}
+
+
+def phase_training(torch, card, data, parts):
+    """Cluster-GCN training at full width (phase 13). Returns the bit-serial
+    GEMM launches of the three trainer.train runs."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import api
+    from repro_torch.api import nn
+    from repro_torch.benchmarks import run
+    from repro_torch.kernels import bitserial
+    from repro_torch.models import gnn
+    from repro_torch.train import intpath, trainer
+    from repro_torch.train import optimizer as opt
+
+    t_phase = time.perf_counter()
+    batches = trainer.prepare_batches(data, parts, batch_size=BATCH_PARTS)
+    bp, rp = intpath.batch_caps(batches)
+    blocks = {len(b.part_sizes) for b in batches}
+    if blocks != {BATCH_PARTS}:
+        raise AssertionError(f"training batches of {blocks} parts")
+    cfg = gnn.GNNConfig.paper_gcn(data.features.shape[1], data.n_classes,
+                                  TRAIN_BITS, TRAIN_BITS)
+    arts = [intpath.build_artifacts(b, TRAIN_BITS, block_pad=bp, rem_pad=rp,
+                                    device=DEVICE) for b in batches[:2]]
+    emit(phase="training_setup", model="qgtc-gcn", widths=[cfg.in_dim, cfg.hidden,
+                                                          cfg.hidden, cfg.n_classes],
+         batches=len(batches), batch_nodes=batches[0].n_nodes,
+         e_cap=int(batches[0].edges.shape[1]), blocks=BATCH_PARTS, block_pad=bp,
+         rem_pad=rp, cross_edges=[int((a.rem_src >= 0).sum()) for a in arts],
+         seconds=time.perf_counter() - t_phase, card=card)
+
+    # the decomposition is exact: blocks + remainder == the dense product
+    gen = torch.Generator().manual_seed(13)
+    for b, art in zip(batches[:2], arts):
+        adj = trainer.make_device_batch(b, device=DEVICE)["adj"].to(torch.float64)
+        tiled = intpath.build_artifacts(b, TRAIN_BITS, block_pad=bp, rem_pad=rp,
+                                        with_tiles=True, device=DEVICE)
+        for bits in (1, 4, 8):
+            vq = torch.randint(0, 1 << bits, (b.n_nodes, cfg.hidden),
+                               generator=gen, dtype=torch.int32).to(DEVICE)
+            want = (adj @ vq.to(torch.float64)).to(torch.int32)
+            for mode, a in itertools.product(("vpu", "mxu"), (art, tiled)):
+                got = nn.blocked_agg_full(
+                    a.adjb, a.row_idx, a.rem_src, a.rem_dst, vq, bits,
+                    backend="cuda", policy=api.ExecutionPolicy(mode=mode),
+                    tiles=a.tiles, s_maxes=a.s_maxes)
+                if not torch.equal(got, want):
+                    raise AssertionError(f"blocked aggregate {bits}b {mode} "
+                                         f"tiles={a.tiles is not None} != dense")
+    emit(phase="training_blocked_aggregate", batches=2, bits=[1, 4, 8],
+         modes=["vpu", "mxu"], tiles=[False, True], equal_dense=True, card=card)
+
+    # one int step on the kernels against the same step on the plain engine
+    params = gnn.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                             device=DEVICE)
+    db = _int_dbatch(torch, batches[0], arts[0])
+    gen_state = torch.Generator(device=DEVICE).manual_seed(0x5eed).get_state()
+    for mode, (grad_bits, sr) in itertools.product(("vpu", "mxu"), TRAIN_EQUAL):
+        kernel = bitserial.kernel_name("bitserial_gemm", mode)
+        bitserial.reset_launches()
+        with api.use("cuda", policy=api.ExecutionPolicy(mode=mode)):
+            got = int_step(torch, params, db, cfg, gen_state, grad_bits=grad_bits,
+                           stochastic=sr, device=DEVICE)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in bitserial.LAUNCHES.items() if v}
+        bitserial.reset_launches()
+        with api.use("torch_dot"):
+            want = int_step(torch, params, db, cfg, gen_state, grad_bits=grad_bits,
+                            stochastic=sr, device=DEVICE)
+        torch.cuda.synchronize()
+        # the backward runs on autograd's own thread: it must keep the engine
+        if any(bitserial.LAUNCHES.values()):
+            raise AssertionError(f"the torch_dot step launched "
+                                 f"{dict(bitserial.LAUNCHES)}")
+        expected = int_launches_per_step(cfg.layers, BATCH_PARTS, grad_bits)
+        if launched != {kernel: expected}:
+            raise AssertionError(f"training step {mode} g{grad_bits}: launches "
+                                 f"{launched}, expected {kernel}: {expected}")
+        unequal = [i for i, (g, w) in enumerate(zip(got, want))
+                   if not torch.equal(g, w)]
+        if unequal or not bool(torch.isfinite(got[0])):
+            raise AssertionError(f"training step {mode} g{grad_bits} sr={sr}: "
+                                 f"tensors {unequal} differ from torch_dot's")
+        emit(phase="training_step_vs_plain", mode=mode, bits=TRAIN_BITS,
+             grad_bits=grad_bits, stochastic=sr, loss=float(got[0]),
+             tensors_bit_equal=len(got), launches=launched, card=card)
+
+    # trainer.train at full width: the user's entry point
+    run_launches = {}
+    for name, kw in TRAIN_RUNS:
+        tcfg = trainer.TrainConfig(steps=TRAIN_STEPS, log_every=1, seed=0, **kw)
+        bitserial.reset_launches()
+        t0 = time.perf_counter()
+        _, _, hist = trainer.train(data, parts, cfg, tcfg, batch_size=BATCH_PARTS,
+                                   device=DEVICE)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launched = {k: v for k, v in bitserial.LAUNCHES.items() if v}
+        per_step = (int_launches_per_step(cfg.layers, BATCH_PARTS,
+                                          kw.get("grad_bits", 0))
+                    if kw["path"] == "int_bitserial" else 0)
+        if launched != ({"bitserial_gemm": per_step * TRAIN_STEPS} if per_step
+                        else {}):
+            raise AssertionError(f"training run {name}: launches {launched}, "
+                                 f"expected {per_step} a step")
+        losses = [r["loss"] for r in hist]
+        if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"training run {name}: losses {losses}")
+        run_launches[name] = launched.get("bitserial_gemm", 0)
+        emit(phase="training_run", run=name, steps=TRAIN_STEPS,
+             loss_first=losses[0], loss_last=losses[-1], losses=losses,
+             bitserial_gemm_launches=run_launches[name],
+             launches_per_step=per_step, seconds=seconds, card=card)
+
+    # ms per step, one step at a time, each waited for; then a profile
+    cache = intpath.ArtifactCache(TRAIN_BITS, block_pad=bp, rem_pad=rp,
+                                  device=DEVICE)
+    dbs = [_int_dbatch(torch, b, cache.get(b)) for b in batches[:4]]
+    ocfg = opt.AdamWConfig(**TRAIN_OPT)
+    for name, kw in TRAIN_RUNS:
+        params_r = gnn.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                                   device=DEVICE)
+        state = [params_r, opt.adamw_init(params_r)]
+        sr_gen = torch.Generator(device=DEVICE).manual_seed(0x5eed)
+        steps = itertools.count()
+
+        def step():
+            i = next(steps) % len(dbs)
+            if kw["path"] == "fake":
+                db_f = trainer.make_device_batch(batches[i], device=DEVICE)
+                p, s, loss, _ = trainer.train_step(*state, db_f, cfg, ocfg, True)
+            else:
+                p, s, _, loss, _ = trainer.train_step_int(
+                    *state, None, dbs[i], sr_gen, cfg, ocfg, kw.get("grad_bits", 0),
+                    kw.get("stochastic", False), 0, None)
+            state[:] = [p, s]
+            return loss
+
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        ms, host_ms = [], []
+        for _ in range(TRAIN_TIMED_STEPS):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0 = time.perf_counter()
+            start.record()
+            step()
+            end.record()
+            end.synchronize()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            ms.append(start.elapsed_time(end))
+        bitserial.reset_launches()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(TRAIN_PROFILED_STEPS):
+                step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_PROFILED_STEPS
+        gemm_launches = bitserial.LAUNCHES["bitserial_gemm"] / TRAIN_PROFILED_STEPS
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        device_ms = (sum(e.self_device_time_total for e in kernels) / 1e3
+                     / TRAIN_PROFILED_STEPS)
+        gemm = [e for e in kernels if "bitserial_tile_kernel" in e.key]
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+        emit(phase="training_step_ms", run=name, batch_nodes=batches[0].n_nodes,
+             ms_per_step=statistics.median(ms), ms_per_step_min=min(ms),
+             host_ms_per_step=statistics.median(host_ms),
+             bitserial_gemm_launches_per_step=gemm_launches,
+             profiled_host_wall_ms=wall_ms,
+             device_ms_per_step=device_ms if kernels else "not measured",
+             device_idle_share=(1 - device_ms / wall_ms) if kernels else "not measured",
+             device_ops_per_step=sum(e.count for e in kernels) / TRAIN_PROFILED_STEPS,
+             gemm_kernel_ms_per_step=(sum(e.self_device_time_total for e in gemm)
+                                      / 1e3 / TRAIN_PROFILED_STEPS
+                                      if gemm else "not measured"),
+             top_device_ms=[[e.key[:60], e.self_device_time_total / 1e3
+                             / TRAIN_PROFILED_STEPS, e.count // TRAIN_PROFILED_STEPS]
+                            for e in top], card=card)
+
+    # Table 2 through the suite runner, at the reference's sizes
+    t0 = time.perf_counter()
+    records = _quiet(run.main, device=DEVICE, suites=["table2"])
+    seconds = time.perf_counter() - t0
+    accs = {r["name"]: r["value"] for r in records}
+    if len(accs) != 18 or not all(0.0 <= v <= 1.0 for v in accs.values()):
+        raise AssertionError(f"table2: cells {accs}")
+    for r in records:
+        emit(phase="table2", **r, card=card)
+    emit(phase="table2_done", cells=len(accs), seconds=seconds,
+         test_acc=accs, card=card)
+    emit(phase="training_done", seconds=time.perf_counter() - t_phase,
+         run_launches=run_launches, card=card)
+    return run_launches
 
 
 def main() -> int:
@@ -1956,8 +2226,8 @@ def main() -> int:
     # each path runs with every count at 0 just before it and read after it,
     # and never leaves the engine it asks for
     with no_fallback():
-        models, batches, dbs, tiles, path_launches, logits = phase_main_path(
-            torch, card)
+        (models, batches, dbs, tiles, path_launches, logits, data,
+         parts) = phase_main_path(torch, card)
         launches = {"bitserial_gemm": path_launches}
         launches["bitserial_gemm_mxu"] = phase_main_path_mxu(
             torch, card, models, dbs, tiles, logits)
@@ -1978,6 +2248,8 @@ def main() -> int:
     phase_packing(torch, card, batches[0], dbs[0])
     phase_fig9b(torch, card, batches[0])
     phase_figures(torch, card)
+    with no_fallback():
+        phase_training(torch, card, data, parts)
     # the kernels line carries wq_gemm at the gate projection, batch 1
     timing["wq_gemm"] = phase_wq_timing(torch, card, wq_packed)[("wg", 1)]
 

@@ -1,4 +1,4 @@
-"""Quantization primitives (paper Eq. 2).
+"""Quantization primitives (paper Eq. 2) and QAT fake-quant with STE.
 
 A float ``a`` maps to an UNSIGNED q-bit integer
 
@@ -19,8 +19,8 @@ import dataclasses
 
 import torch
 
-__all__ = ["QuantParams", "calibrate", "quantize", "dequantize",
-           "affine_matmul_correction"]
+__all__ = ["QuantParams", "calibrate", "quantize", "quantize_stochastic",
+           "dequantize", "fake_quant", "affine_matmul_correction"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,8 +59,59 @@ def quantize(x: torch.Tensor, qp: QuantParams) -> torch.Tensor:
     return torch.clamp(q, 0, qp.qmax).to(torch.int32)
 
 
+def quantize_stochastic(x: torch.Tensor, qp: QuantParams,
+                        u: torch.Tensor | None = None, *,
+                        generator: torch.Generator | None = None) -> torch.Tensor:
+    """Eq. 2 with stochastic rounding: floor((x - a_min)/scale + u), u~U[0,1).
+
+    E[dequantize(q)] == clip(x): the rounding error is zero-mean, so it does
+    not pile up across training steps as floor-rounding's bias does. ``u``
+    is the uniform draw itself, of x's shape; without it one is drawn from
+    ``generator`` on x's device. With ``u == 0`` this is :func:`quantize`.
+    """
+    v = (x - qp.zero) / qp.scale
+    if u is None:
+        u = torch.rand(x.shape, generator=generator, dtype=torch.float32,
+                       device=x.device)
+    return torch.clamp(torch.floor(v + u), 0, qp.qmax).to(torch.int32)
+
+
 def dequantize(q: torch.Tensor, qp: QuantParams) -> torch.Tensor:
     return q.to(torch.float32) * qp.scale + qp.zero
+
+
+def in_range(x: torch.Tensor, qp: QuantParams) -> torch.Tensor:
+    """The STE gate: True where quantize() does not clip, i.e. x in
+    [zero, zero + scale * 2**nbits). The upper bound is strict: there floor
+    gives 2**nbits, which is clipped to qmax."""
+    return (x >= qp.zero) & (x < qp.zero + qp.scale * (qp.qmax + 1))
+
+
+class _FakeQuant(torch.autograd.Function):
+    """dequantize(quantize(x)) forward; the gradient passes where x is in
+    range and is zero where quantize() clipped it."""
+
+    @staticmethod
+    def forward(ctx, x, nbits, qp):
+        if qp is None:
+            qp = calibrate(x, nbits)
+        ctx.save_for_backward(in_range(x, qp))
+        return dequantize(quantize(x, qp), qp)
+
+    @staticmethod
+    def backward(ctx, g):
+        (mask,) = ctx.saved_tensors
+        return torch.where(mask, g, 0.0), None, None
+
+
+def fake_quant(x: torch.Tensor, nbits: int,
+               qp: QuantParams | None = None) -> torch.Tensor:
+    """QAT fake-quantization with a straight-through estimator.
+
+    Forward: dequantize(quantize(x)), calibrated on x unless ``qp`` is
+    given; backward: identity within the clip range, zero outside.
+    """
+    return _FakeQuant.apply(x, nbits, qp)
 
 
 def affine_matmul_correction(aq: torch.Tensor, bq: torch.Tensor,

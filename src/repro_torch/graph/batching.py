@@ -10,12 +10,14 @@ batches.
 from __future__ import annotations
 
 import dataclasses
+import itertools
+from typing import Iterator
 
 import numpy as np
 
 from repro_torch.graph.datasets import GraphData
 
-__all__ = ["SubgraphBatch", "make_batches"]
+__all__ = ["SubgraphBatch", "make_batches", "batch_iterator"]
 
 
 @dataclasses.dataclass
@@ -80,3 +82,22 @@ def make_batches(
         batches.append(SubgraphBatch(el, n_pad, sub.n, feats, labels, mask,
                                      ids, sub.e, part_sizes=sizes))
     return batches
+
+
+def batch_iterator(batches: list[SubgraphBatch], epochs: int | None = None,
+                   seed: int = 0) -> Iterator[tuple[int, SubgraphBatch]]:
+    """Deterministic, step-resumable iterator: step -> batch is a pure map.
+
+    Each epoch visits the batches in ``np.random.default_rng(seed +
+    epoch).permutation``'s order. ``epochs=None`` iterates forever (the
+    training loop stops on its step budget); a finite ``epochs`` yields
+    ``epochs * len(batches)`` steps, a prefix of the infinite sequence.
+    """
+    n = len(batches)
+    step = 0
+    epoch_range = itertools.count() if epochs is None else range(epochs)
+    for epoch in epoch_range:
+        order = np.random.default_rng(seed + epoch).permutation(n)
+        for i in range(n):
+            yield step, batches[int(order[i])]
+            step += 1

@@ -22,7 +22,7 @@ import numpy as np
 
 from repro_torch.graph.sparse import CSR
 
-__all__ = ["partition", "edge_cut", "balance"]
+__all__ = ["partition", "random_partition", "edge_cut", "balance"]
 
 
 def _bfs_order(csr: CSR, seed: int) -> np.ndarray:
@@ -122,6 +122,14 @@ def partition(
         if moved == 0:
             break
     return parts
+
+
+def random_partition(n: int, k: int, seed: int = 0) -> np.ndarray:
+    """Balanced random parts: node i to part i % k, then shuffled."""
+    rng = np.random.default_rng(seed)
+    parts = np.arange(n, dtype=np.int64) % k
+    rng.shuffle(parts)
+    return parts.astype(np.int32)
 
 
 def edge_cut(csr: CSR, parts: np.ndarray) -> int:

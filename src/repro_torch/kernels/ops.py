@@ -21,7 +21,8 @@ from repro_torch.kernels import bitserial as _bitserial
 from repro_torch.kernels import sgt as _sgt
 from repro_torch.kernels import wqmm as _wqmm
 
-__all__ = ["bgemm", "bitserial_gemm", "bitserial_fused", "bitpack", "wq_gemm"]
+__all__ = ["bgemm", "bitserial_gemm", "bitserial_fused", "bitpack", "wq_gemm",
+           "edge_scatter_sum"]
 
 
 def _resolve(policy: ExecutionPolicy | None, **overrides):
@@ -236,3 +237,27 @@ def wq_gemm(
     sp = bitops.pad_to(scales, 0, block_k // group).contiguous()
     return _wqmm.wq_gemm(xp, wp, sp, group=group, block_m=block_m,
                          block_n=block_n, block_k=block_k)
+
+
+def edge_scatter_sum(values: torch.Tensor, src: torch.Tensor,
+                     dst: torch.Tensor, n_out: int) -> torch.Tensor:
+    """Edge-list aggregation: out[dst[e]] += values[src[e]], -1-padded edges.
+
+    Keeps the dtype (int32 in, int32 out), so the integer training path
+    adds the cross-partition remainder of its blocked GEMMs without leaving
+    the integer domain. A padded edge's message is masked to zero before
+    the add, which then lands harmlessly on row 0. The adds go through
+    ``index_add_``, except float sums on the card: there ``index_add_``
+    adds with atomics, in whatever order they land, so those go through
+    ``index_put_`` with ``accumulate``, which sorts by destination and adds
+    each row's messages in edge order. Either way a float sum is the same
+    bits on every run and every engine (integers are exact in any order).
+    """
+    valid = (src >= 0)[:, None]
+    s, d = src.clamp(min=0).to(torch.int64), dst.clamp(min=0).to(torch.int64)
+    msgs = torch.where(valid, values[s], 0)
+    out = torch.zeros((n_out,) + tuple(values.shape[1:]), dtype=values.dtype,
+                      device=values.device)
+    if values.is_cuda and values.dtype.is_floating_point:
+        return out.index_put_((d,), msgs, accumulate=True)
+    return out.index_add_(0, d, msgs)

@@ -1,14 +1,20 @@
 """GNN models: Cluster-GCN and Batched GIN (paper §6.1 benchmarks).
 
-Three inference paths share one parameter dict:
+Four paths share one parameter dict:
 
-  fp32_dense — dense-adjacency fp32 matmuls (the "DGL dense" baseline)
+  fp32_dense — dense-adjacency fp32 matmuls (the "DGL dense" baseline),
+               fake-quantized for QAT with ``fake_bits=True``
   fp32_csr   — gather / ``index_add_`` aggregation over the edge list (the
                DGL/PyG scatter-kernel analogue)
   qgtc       — the paper's path: binary adjacency, any-bit quantized
                activations and weights, integer bit-serial GEMMs with float
                rescale epilogues (Algorithm 1 + §4.5). Hidden layers
                requantize; only the final layer emits full precision.
+  int_bitserial — the training twin of qgtc (``forward_int``): the same
+               integer forward, differentiable (``api.nn.qlinear_train`` /
+               ``qgraph_conv_train``, STE backward, optional quantized
+               gradients and stochastic rounding), over a batch's cached
+               ``train.intpath.IntBatchArtifacts``.
 
 The qgtc path is built from ``repro_torch.api.nn`` (``qlinear`` /
 ``qgraph_conv``), which dispatch through the backend registry: pick the
@@ -28,11 +34,11 @@ import dataclasses
 import torch
 
 from repro_torch.api import nn as qnn
-from repro_torch.core.quantize import calibrate, quantize
+from repro_torch.core.quantize import calibrate, fake_quant, quantize
 from repro_torch.device import resolve_device
 
-__all__ = ["GNNConfig", "init_params", "forward", "forward_qgtc",
-           "quantize_params"]
+__all__ = ["GNNConfig", "init_params", "forward", "forward_int",
+           "forward_qgtc", "quantize_params"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,22 +113,79 @@ def _aggregate_csr(edges, h, inv_deg):
 
 
 def forward(params: dict, adj_or_edges, x, inv_deg, cfg: GNNConfig,
-            path: str = "fp32_dense"):
-    """fp32 forward. ``adj_or_edges`` is the dense 0/1 adjacency for
-    ``fp32_dense`` and the (2, E) -1-padded edge list for ``fp32_csr``;
-    inv_deg is (N, 1)."""
+            path: str = "fp32_dense", fake_bits: bool = False, **int_kw):
+    """fp32 forward, fake-quantized for QAT when ``fake_bits``.
+
+    ``adj_or_edges`` is the dense 0/1 adjacency for ``fp32_dense`` and the
+    (2, E) -1-padded edge list for ``fp32_csr``; inv_deg is (N, 1).
+    ``path="int_bitserial"`` is :func:`forward_int`: ``adj_or_edges`` is
+    then an ``IntBatchArtifacts`` (``x`` and ``inv_deg`` are unused) and
+    ``int_kw`` carries grad_bits/stochastic/generator/backend/policy. The
+    fake-quant path quantizes where the integer paths do, the requant of
+    ``u`` before the aggregation included, so both compute the same
+    function up to GEMM rounding.
+    """
+    if path == "int_bitserial":
+        return forward_int(params, adj_or_edges, cfg, **int_kw)
     if path not in ("fp32_dense", "fp32_csr"):
-        raise ValueError(f"path must be fp32_dense or fp32_csr, got {path!r}")
+        raise ValueError(f"path must be fp32_dense, fp32_csr or "
+                         f"int_bitserial, got {path!r}")
     agg = _aggregate_dense if path == "fp32_dense" else _aggregate_csr
     h = x
     for l in range(cfg.layers):
         p = params[f"layer{l}"]
+        if fake_bits:
+            h = fake_quant(h, cfg.x_bits)
         if cfg.model == "gin":
+            w1 = fake_quant(p["w1"], cfg.w_bits) if fake_bits else p["w1"]
+            w2 = fake_quant(p["w2"], cfg.w_bits) if fake_bits else p["w2"]
             a = agg(adj_or_edges, h, inv_deg) + p["eps"] * h
-            h = torch.relu(a @ p["w1"] + p["b1"])
-            h = h @ p["w2"] + p["b2"]
+            if fake_bits:
+                a = fake_quant(a, cfg.x_bits)
+            h = torch.relu(a @ w1 + p["b1"])
+            if fake_bits:
+                h = fake_quant(h, cfg.x_bits)
+            h = h @ w2 + p["b2"]
         else:  # cluster-GCN: update THEN aggregate (paper §6.2)
-            h = agg(adj_or_edges, h @ p["w"] + p["b"], inv_deg)
+            w = fake_quant(p["w"], cfg.w_bits) if fake_bits else p["w"]
+            u = h @ w + p["b"]
+            if fake_bits:
+                # the integer paths aggregate QUANTIZED u: fake-quant here
+                # too, so QAT trains the function they run
+                u = fake_quant(u, cfg.x_bits)
+            h = agg(adj_or_edges, u, inv_deg)
+        if l != cfg.layers - 1:
+            h = torch.relu(h)
+    return h
+
+
+# ----------------------------------------------------------- training int path
+
+def forward_int(params: dict, art, cfg: GNNConfig, *, grad_bits: int = 0,
+                stochastic: bool = False, generator=None, backend=None,
+                policy=None):
+    """Differentiable integer forward over a batch's cached artifacts.
+
+    The float-parameter twin of :func:`forward_qgtc`: the layers quantize
+    the weights per call (autograd reaches them through the STE), the
+    activations flow quantized through the bit-serial GEMMs, and the
+    aggregation runs over ``art``'s diagonal blocks plus the cross-block
+    remainder. Layer 0 takes the features ``art`` quantized once.
+    ``grad_bits > 0`` quantizes the backward GEMMs too; ``stochastic``
+    rounds stochastically, drawing every layer's noise from ``generator``.
+    """
+    if cfg.model != "gcn":
+        raise NotImplementedError(
+            "int_bitserial training path covers cluster-GCN; GIN still "
+            "trains via the fake-quant path (its eps-weighted self term "
+            "needs a float epilogue the train kernels do not fuse yet)")
+    kw = dict(x_bits=cfg.x_bits, grad_bits=grad_bits, stochastic=stochastic,
+              generator=generator, backend=backend, policy=policy)
+    h = (art.xq, art.qpx)
+    for l in range(cfg.layers):
+        p = params[f"layer{l}"]
+        u = qnn.qlinear_train(h, p["w"], p["b"], w_bits=cfg.w_bits, **kw)
+        h = qnn.qgraph_conv_train(u, art, **kw)
         if l != cfg.layers - 1:
             h = torch.relu(h)
     return h

@@ -1003,3 +1003,120 @@ def test_bench_median_times_the_card_with_events(cuda_device):
     x = torch.ones((2048, 2048), device=cuda_device)
     t = bench_median(torch.matmul, x, x, warmup=2, iters=5)
     assert 0 < t < 1
+
+
+# ------------------------------------------------------------------ training
+
+@pytest.fixture(scope="module")
+def train_setup():
+    """The reference tests' proteins graph (scale 0.05, 8 parts, 4 a batch),
+    built by the port on the host."""
+    from repro_torch.graph import datasets, partition
+    from repro_torch.train import intpath, trainer
+
+    data = datasets.load("proteins", scale=0.05, seed=0)
+    parts = partition.partition(data.csr, 8)
+    batches = trainer.prepare_batches(data, parts, batch_size=4)
+    return data, parts, batches, intpath.batch_caps(batches)
+
+
+@pytest.mark.parametrize("grad_bits,sr", chip_smoke.TRAIN_EQUAL)
+@pytest.mark.parametrize("mode", ["vpu", "mxu"])
+@pytest.mark.parametrize("bits", [2, 8])
+def test_int_training_step_equals_plain_engine_on_card(cuda_device, train_setup,
+                                                       bits, mode, grad_bits, sr):
+    """One int_bitserial step on the kernels and on torch_dot: loss,
+    gradients, updated params and AdamW moments bit-equal."""
+    from repro_torch.train import intpath
+
+    data, _, batches, (bp, rp) = train_setup
+    cfg = gnn.GNNConfig.paper_gcn(data.features.shape[1], data.n_classes,
+                                  bits, bits)
+    b = batches[0]
+    db = {"art": intpath.build_artifacts(b, bits, block_pad=bp, rem_pad=rp,
+                                         device=cuda_device),
+          "y": torch.as_tensor(b.labels, device=cuda_device),
+          "mask": torch.as_tensor(b.train_mask, device=cuda_device)}
+    params = gnn.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                             device=cuda_device)
+    state = torch.Generator(device=cuda_device).manual_seed(5).get_state()
+    kernel = bitserial.kernel_name("bitserial_gemm", mode)
+    before = dict(LAUNCHES)
+    with api.use("cuda", policy=api.ExecutionPolicy(mode=mode)):
+        got = chip_smoke.int_step(torch, params, db, cfg, state, grad_bits=grad_bits,
+                                  stochastic=sr, device=cuda_device)
+    launched = {k: v - before[k] for k, v in LAUNCHES.items() if v != before[k]}
+    before = dict(LAUNCHES)
+    with api.use("torch_dot"):
+        want = chip_smoke.int_step(torch, params, db, cfg, state,
+                                   grad_bits=grad_bits, stochastic=sr,
+                                   device=cuda_device)
+    assert LAUNCHES == before  # the backward, on autograd's thread, too
+    assert launched == {kernel: chip_smoke.int_launches_per_step(
+        cfg.layers, len(b.part_sizes), grad_bits)}
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert bool(torch.isfinite(got[0]))
+
+
+@pytest.mark.parametrize("mode", ["vpu", "mxu"])
+@pytest.mark.parametrize("bits", [1, 4, 8])
+def test_blocked_aggregation_equals_dense_on_card(cuda_device, train_setup, bits,
+                                                  mode):
+    from repro_torch.train import intpath, trainer
+
+    _, _, batches, (bp, rp) = train_setup
+    gen = torch.Generator().manual_seed(bits)
+    for b in batches:
+        adj = trainer.make_device_batch(b, device=cuda_device)["adj"]
+        vq = torch.randint(0, 1 << bits, (b.n_nodes, 16), generator=gen,
+                           dtype=torch.int32).to(cuda_device)
+        want = (adj.to(torch.float64) @ vq.to(torch.float64)).to(torch.int32)
+        for tiles in (False, True):
+            art = intpath.build_artifacts(b, bits, block_pad=bp, rem_pad=rp,
+                                          with_tiles=tiles, device=cuda_device)
+            got = intpath.blocked_aggregate(
+                art, vq, backend="cuda", policy=api.ExecutionPolicy(mode=mode))
+            assert torch.equal(got, want)
+
+
+def test_float_edge_scatter_sum_repeats_on_card(cuda_device):
+    """Many messages into few rows: the float sum has the same bits on every
+    run, and agrees with the CPU's within float32 rounding."""
+    gen = torch.Generator().manual_seed(0)
+    v = torch.randn((3000, 16), generator=gen)
+    src = torch.randint(0, 3000, (40000,), generator=gen, dtype=torch.int32)
+    dst = torch.randint(0, 50, (40000,), generator=gen, dtype=torch.int32)
+    src[-100:] = -1
+    dst[-100:] = -1
+    runs = [ops.edge_scatter_sum(v.to(cuda_device), src.to(cuda_device),
+                                 dst.to(cuda_device), 3000) for _ in range(4)]
+    assert all(torch.equal(r, runs[0]) for r in runs)
+    cpu = ops.edge_scatter_sum(v, src, dst, 3000)
+    torch.testing.assert_close(runs[0].cpu(), cpu, rtol=1e-4, atol=1e-4)
+    vi = torch.randint(0, 256, (3000, 16), generator=gen, dtype=torch.int32)
+    got = ops.edge_scatter_sum(vi.to(cuda_device), src.to(cuda_device),
+                               dst.to(cuda_device), 3000)
+    assert got.dtype == torch.int32
+    assert torch.equal(got.cpu(), ops.edge_scatter_sum(vi, src, dst, 3000))
+
+
+def test_trainer_runs_both_paths_on_card(cuda_device, train_setup):
+    from repro_torch.train import trainer
+
+    data, parts, batches, _ = train_setup
+    cfg = gnn.GNNConfig.paper_gcn(data.features.shape[1], data.n_classes, 4, 4)
+    for kw in ({"path": "fake"}, {"path": "int_bitserial", "grad_bits": 8,
+                                  "stochastic": True, "grad_compress_bits": 8}):
+        before = LAUNCHES["bitserial_gemm"]
+        params, _, hist = trainer.train(
+            data, parts, cfg, trainer.TrainConfig(steps=3, log_every=1, **kw),
+            batch_size=4, device=cuda_device)
+        launched = LAUNCHES["bitserial_gemm"] - before
+        per_step = (chip_smoke.int_launches_per_step(cfg.layers, 4, 8)
+                    if kw["path"] != "fake" else 0)
+        assert launched == 3 * per_step
+        assert all(np.isfinite(r["loss"]) for r in hist)
+        assert params["layer0"]["w"].device.type == cuda_device.type
+        acc = trainer.evaluate(params, data, parts, cfg, qat=True,
+                               device=cuda_device)
+        assert 0.0 <= acc <= 1.0

@@ -229,7 +229,8 @@ def test_run_writes_the_records(tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="reference"):
         run.main(device="cpu", out=tmp_path / "BENCH_kernels.json")
     assert [s for s, _ in run.SUITES] == ["fig8a", "fig9a"]
-    assert set(run.SMOKE) == {"fig7", "fig8a", "fig8b", "fig8c", "fig9a", "fig9b"}
+    assert set(run.SMOKE) == {"fig7", "fig8a", "fig8b", "fig8c", "fig9a", "fig9b",
+                              "table2"}
 
 
 def test_percentile_and_latency_summary_equal_reference():

@@ -26,13 +26,13 @@ from repro_torch import api  # noqa: E402
 from repro_torch.api import registry  # noqa: E402
 from repro_torch.api.backend import Backend, UnsupportedOpError  # noqa: E402
 from repro_torch.benchmarks import fig9b_transfer, run  # noqa: E402
-from repro_torch.convert import params_from_jax  # noqa: E402
+from repro_torch.convert import adamw_state_from_jax, params_from_jax  # noqa: E402
 from repro_torch.core import bitops, zerotile  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.graph import batching, datasets, packing, partition  # noqa: E402
 from repro_torch.kernels import bitserial, ops  # noqa: E402
 from repro_torch.models import gnn  # noqa: E402
-from repro_torch.train import trainer  # noqa: E402
+from repro_torch.train import intpath, trainer  # noqa: E402
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -111,6 +111,20 @@ def test_entry_points_need_a_card_unless_told_cpu(no_card):
         run.main()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         fig9b_transfer.run({"batch": b})
+    # training: the trainer, its evaluation, the int path's artifacts and
+    # the optimizer state carried from the reference
+    parts = partition.partition(data.csr, 2)
+    tcfg = trainer.TrainConfig(steps=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        trainer.train(data, parts, cfg, tcfg, batch_size=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        trainer.evaluate({}, data, parts, cfg, batch_size=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        intpath.build_artifacts(b, 8)
+    state = {"mu": {"layer0": {"w": np.zeros(2)}},
+             "nu": {"layer0": {"w": np.zeros(2)}}, "step": np.int32(0)}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        adamw_state_from_jax(state)
     # asked for the CPU, every entry point works there
     assert resolve_device("cpu").type == "cpu"
     params = gnn.init_params(cfg, generator=gen, device="cpu")
@@ -121,6 +135,12 @@ def test_entry_points_need_a_card_unless_told_cpu(no_card):
         assert out[0].device.type == "cpu"
     assert params_from_jax({"layer0": {"w": np.zeros((2, 2))}},
                            device="cpu")["layer0"]["w"].dtype == torch.float32
+    assert intpath.build_artifacts(b, 8, device="cpu").adjb.device.type == "cpu"
+    assert adamw_state_from_jax(state, device="cpu")["step"].device.type == "cpu"
+    cfg = gnn.GNNConfig.paper_gcn(data.features.shape[1], data.n_classes)
+    trained, _, _ = trainer.train(data, parts, cfg, tcfg, batch_size=1,
+                                  device="cpu")
+    assert trained["layer0"]["w"].device.type == "cpu"
 
 
 def test_kernel_wrapper_takes_cpu_or_cuda_only():
