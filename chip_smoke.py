@@ -121,9 +121,29 @@ without printing a result:
      three steps each under torch.profiler (device ms, idle share). Then
      Table 2 through repro_torch.benchmarks.run at the reference's sizes:
      each cell's test accuracy and the suite's seconds.
+  14. serving — repro_torch.serve.GNNServer on the card: one request per
+     Cluster-GCN part of the main path's graph (1500), qgtc-gcn 8-bit on
+     the cuda engine with jump="compact", buckets topping out at 2560
+     nodes; three rounds, each drained (round 1 cold, then the tile
+     cache), with nodes/s, batch and request p50/p95, queue p95, hit rate,
+     bytes moved and forward signatures a round; bitserial_gemm launched
+     6 times a batch and nothing else. Every bit-serial GEMM of a cold, a
+     warm and an sgt batch against its plain version on the same inputs
+     (composed tiles, s_max rounded up to a power of two). 300 requests x
+     2 rounds served equal (torch.equal, request by request) on the cuda
+     engine with compact tiles, torch_dot, sgt, mode="mxu", no jumping
+     and no cache, and GIN 8-bit on the cuda engine and torch_dot; the
+     first two batches within 1e-5 of the port on the CPU. Failover: 3
+     virtual replicas, one killed, nothing lost, logits equal to a clean
+     run, the last round's hit rate >= 0.9. Cold and warm batches under
+     torch.profiler, and the host's split (numpy pack, staging and copy,
+     entries built and composed, forward dispatch, the wait for the
+     device). Then the serve suite of repro_torch.benchmarks.run at the
+     reference's sizes, the --gnn launcher and the train-then-serve
+     example.
 
-Phases 3, 4 and 13 run with the registry's fallback warning turned into
-an error: a path must stay on the engine it asks for.
+Phases 3, 4, 13 and 14 run with the registry's fallback warning turned
+into an error: a path must stay on the engine it asks for.
 
 The line before the last lists each kernel as JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -140,6 +160,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 import warnings
 from pathlib import Path
 
@@ -161,6 +182,19 @@ TRAIN_RUNS = (("fake8", dict(path="fake")),
 # the int path's steps held to the plain engine: (grad_bits, stochastic)
 TRAIN_EQUAL = ((0, False), (8, False), (8, True))
 TRAIN_OPT = dict(lr=1e-2, weight_decay=1e-4, grad_clip=1.0)  # trainer.train's
+# serving (phase 14): GNNServer on the main path's graph, a request a part
+SERVE_BITS = 8
+SERVE_NODE_BUDGET = 2560       # a bucket of about the main path's 20 parts
+SERVE_LEVELS = 3
+SERVE_ROUNDS = 3               # round 1 cold, rounds 2-3 hit the tile cache
+SERVE_CACHE_ENTRIES = 2048     # every one of the 1500 subgraphs stays resident
+SERVE_EQ_REQUESTS, SERVE_EQ_ROUNDS = 300, 2
+SERVE_FAILOVER_REQUESTS, SERVE_FAILOVER_ROUNDS = 60, 4
+SERVE_PROFILED_BATCHES = 5
+# launcher and example: the reference's documented smoke sizes
+SERVE_CLI = ["--gnn", "ogbn-arxiv", "--scale", "0.008", "--parts", "8",
+             "--rounds", "2"]
+SERVE_EXAMPLE = ["--steps", "20"]
 PACKING_BITS = (8, 4, 1)
 DEVICE = "cuda"
 BITS = (8, 4, 2)
@@ -1933,11 +1967,11 @@ def phase_fig9b(torch, card, arxiv_batch):
 def phase_figures(torch, card):
     """The paper-figure suites at the reference's default sizes, on the
     card; each record echoed. A suite's failed check raises. Table 2 runs
-    in the training phase."""
+    in the training phase, the serve suite in the serving phase."""
     from repro_torch.benchmarks import run
 
     t0 = time.perf_counter()
-    figures = [name for name, _ in run.SUITES if name != "table2"]
+    figures = [name for name, _ in run.SUITES if name not in ("table2", "serve")]
     records = _quiet(run.main, device=DEVICE, suites=figures)
     for r in records:
         emit(phase="figures", **r, card=card)
@@ -2186,6 +2220,407 @@ def phase_training(torch, card, data, parts):
     return run_launches
 
 
+def _fresh_request(r):
+    from repro_torch.serve import SubgraphRequest
+
+    return SubgraphRequest(edges=r.edges, features=r.features, n_nodes=r.n_nodes)
+
+
+def _serve_rounds(server, reqs, rounds):
+    """``rounds`` waves of ``reqs``, each drained; the logits of every
+    request in submit order, a list per round. Nothing may be lost."""
+    out = []
+    for _ in range(rounds):
+        ids = [server.submit(_fresh_request(r)) for r in reqs]
+        got = server.drain(return_logits=True)
+        lost = [i for i in ids if i not in got]
+        if lost or None in ids:
+            raise AssertionError(f"serving lost requests {lost}")
+        out.append([got[i][1] for i in ids])
+    return out
+
+
+def _equal_logits(torch, a, b, what):
+    """Request-by-request torch.equal of two runs' logits."""
+    for rnd, (ra, rb) in enumerate(zip(a, b)):
+        for i, (x, y) in enumerate(zip(ra, rb)):
+            if not torch.equal(torch.from_numpy(x), torch.from_numpy(y)):
+                raise AssertionError(f"serving {what}: round {rnd} request "
+                                     f"{i} logits differ")
+
+
+def _check_launches(bitserial, kernel, expected, what):
+    launches = dict(bitserial.LAUNCHES)
+    others = {k: v for k, v in launches.items() if k != kernel and v}
+    if launches[kernel] != expected or others:
+        raise AssertionError(f"serving {what}: launches {launches}, expected "
+                             f"{expected} of {kernel} alone")
+    return launches[kernel]
+
+
+class _HostSplit:
+    """Host seconds in the serving path's parts, by wrapping the functions
+    the engine calls: the numpy pack, the staging + copy, the transfer
+    as a whole (pack, stage, copy, unpack), entry builds, composition, the
+    forward's dispatch and the wait for the device."""
+
+    def __init__(self, server):
+        from repro_torch.graph import packing
+        from repro_torch.serve import engine
+
+        self.seconds = {}
+        self._undo = []
+        for mod, name, key in ((packing, "pack_compound", "numpy_pack"),
+                               (packing, "pack_feats", "numpy_pack"),
+                               (packing, "_transfer", "stage_and_copy"),
+                               (engine, "transfer_packed", "transfer"),
+                               (engine, "transfer_packed_feats", "transfer"),
+                               (engine, "compose_entries", "compose_entries"),
+                               (engine, "_wait", "device_wait")):
+            self._wrap(mod, name, key)
+        self._wrap(server, "_build_entry", "build_entries")
+        self._wrap(server, "_fwd", "forward_dispatch")
+
+    def _wrap(self, owner, name, key):
+        fn = getattr(owner, name)
+        self.seconds.setdefault(key, 0.0)
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.seconds[key] += time.perf_counter() - t0
+
+        setattr(owner, name, timed)
+        self._undo.append((owner, name, fn))
+
+    def close(self):
+        for owner, name, fn in reversed(self._undo):
+            if isinstance(owner, types.ModuleType):
+                setattr(owner, name, fn)
+            else:
+                delattr(owner, name)  # the instance's wrapper hid the method
+
+
+def phase_serving(torch, card, data, parts):
+    """Continuous-batching GNN serving on the card (phase 14): GNNServer over
+    one request per Cluster-GCN part of the main path's graph. Returns the
+    bit-serial launches of the timed traffic and of its 'mxu' twin, and the
+    largest kernel-vs-plain difference on the serving path's own inputs."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import api
+    from repro_torch.benchmarks import run
+    from repro_torch.configs.qgtc_gnn import GNN_CONFIGS
+    from repro_torch.examples import train_cluster_gcn
+    from repro_torch.kernels import bitserial
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import gnn
+    from repro_torch.perf import report
+    from repro_torch.serve import (FaultInjector, GNNServer, MicroBatcher,
+                                   make_buckets, requests_from_partitions)
+
+    t_phase = time.perf_counter()
+    models = {}
+    for name in ("qgtc-gcn", "qgtc-gin"):
+        cfg = dataclasses.replace(GNN_CONFIGS[name], x_bits=SERVE_BITS,
+                                  w_bits=SERVE_BITS)
+        params = gnn.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                                 device=DEVICE)
+        models[name] = (cfg, gnn.quantize_params(params, cfg))
+    cfg, qp = models["qgtc-gcn"]
+    compact = api.ExecutionPolicy(jump="compact")
+    reqs = requests_from_partitions(data, parts)
+    t_reqs = time.perf_counter() - t_phase
+
+    def server(policy=compact, backend="cuda", model="qgtc-gcn", **kw):
+        kw.setdefault("buckets", buckets)
+        kw.setdefault("cache_entries", SERVE_CACHE_ENTRIES)
+        return GNNServer(models[model][1], models[model][0], backend=backend,
+                         policy=policy, tuning_table=None, devices=[DEVICE],
+                         **kw)
+
+    align = GNNServer(qp, cfg, policy=compact, tuning_table=None,
+                      devices=[DEVICE]).align
+    buckets = make_buckets(node_budget=SERVE_NODE_BUDGET,
+                           edge_budget=BATCH_PARTS * max(r.n_edges for r in reqs),
+                           tile=align, levels=SERVE_LEVELS)
+    emit(phase="serving_setup", model="qgtc-gcn", bits=SERVE_BITS,
+         requests=len(reqs), request_nodes_max=max(r.n_nodes for r in reqs),
+         request_nodes_mean=statistics.mean(r.n_nodes for r in reqs),
+         request_edges_max=max(r.n_edges for r in reqs), align=align,
+         buckets=[[b.n_pad, b.e_cap] for b in buckets],
+         requests_s=t_reqs, card=card)
+
+    # timed traffic: every part a request, three rounds, each drained
+    srv = server()
+    bitserial.reset_launches()
+    batches, signatures = 0, []
+    for rnd in range(SERVE_ROUNDS):
+        st, cache = srv.stats, srv.cache
+        b0, n0, r0, x0 = st.batches, st.nodes, st.requests, st.transfer_bytes
+        h0, m0 = cache.hits, cache.misses
+        t0 = time.perf_counter()
+        for r in reqs:
+            srv.submit(_fresh_request(r))
+        srv.drain()
+        wall = time.perf_counter() - t0
+        nb, nr = st.batches - b0, st.requests - r0
+        lat = list(st.batch_latencies_s)[-nb:]
+        req_lat = list(st.request_latencies_s)[-nr:]
+        waits = list(st.queue_wait_s)[-nr:]
+        hits = cache.hits - h0
+        batches += nb
+        signatures.append(srv.n_compiles)
+        emit(phase="serving", round=rnd + 1, batches=nb, requests=nr,
+             nodes=st.nodes - n0, wall_s=wall, nodes_per_s=(st.nodes - n0) / wall,
+             requests_per_s=nr / wall,
+             batch_p50_ms=report.percentile(lat, 50) * 1e3,
+             batch_p95_ms=report.percentile(lat, 95) * 1e3,
+             req_p50_ms=report.percentile(req_lat, 50) * 1e3,
+             req_p95_ms=report.percentile(req_lat, 95) * 1e3,
+             queue_p95_ms=report.percentile(waits, 95) * 1e3,
+             cache_hit_rate=hits / max(hits + cache.misses - m0, 1),
+             transfer_bytes=st.transfer_bytes - x0,
+             zero_tile_skip_ratio=st.zero_tile_skip_ratio,
+             cache_resident_bytes=st.cache_resident_bytes,
+             n_compiles=srv.n_compiles, card=card)
+    if srv.stats.requests != SERVE_ROUNDS * len(reqs):
+        raise AssertionError(f"served {srv.stats.requests} requests")
+    launches = {"bitserial_gemm": _check_launches(
+        bitserial, "bitserial_gemm", PER_FORWARD["gcn"] * batches, "traffic")}
+    if len(set(signatures)) != 1:  # a repeated wave adds no signature
+        raise AssertionError(f"forward signatures by round: {signatures}")
+    emit(phase="serving_launches", kernel="bitserial_gemm", batches=batches,
+         launches=launches["bitserial_gemm"],
+         per_batch=launches["bitserial_gemm"] / batches,
+         n_compiles=srv.n_compiles, card=card)
+
+    # the kernel on the serving path's own inputs: every bit-serial GEMM of
+    # one cold and one warm batch (composed compact tiles, s_max rounded up
+    # to a power of two) and of a batch under sgt, against its plain version
+    max_err = 0
+    calls = []
+    real = kops.bitserial_gemm
+
+    def capture(a_packed, b_packed, **kw):
+        calls.append((a_packed, b_packed, kw))
+        return real(a_packed, b_packed, **kw)
+
+    kops.bitserial_gemm = capture
+    try:
+        for policy, rounds in ((compact, 2), (api.ExecutionPolicy(jump="sgt"), 1)):
+            probe = server(policy=policy)
+            for _ in range(rounds):
+                for r in reqs[:BATCH_PARTS]:
+                    probe.submit(_fresh_request(r))
+                probe.step()
+                probe.drain()
+    finally:
+        kops.bitserial_gemm = real
+    kinds = {}
+    for a_packed, b_packed, kw in calls:
+        pol, tiles = kw["policy"], kw.get("tiles")
+        a, b, kern = kops._bitserial_operands(a_packed, b_packed, tiles, None, {
+            "block_m": pol.block_m, "block_n": pol.block_n,
+            "block_w": pol.block_w, "mode": pol.mode, "jump": pol.jump})
+        got = real(a_packed, b_packed, **kw)
+        want = bitserial.bitserial_gemm_plain(
+            a, b, block_m=kern["block_m"], block_w=kern["block_w"],
+            occupancy=kern["occupancy"], compact=kern["compact"],
+            sgt=kern["sgt"])[:a_packed.shape[1]]
+        if not torch.equal(got, want):
+            raise AssertionError("serving: the kernel differs from its plain "
+                                 "version on the serving path's inputs")
+        max_err = max(max_err, (got.to(torch.int64) - want).abs().max().item())
+        kind = ("sgt" if tiles is not None and len(tiles) == 4 else
+                "compact" if tiles is not None else "none")
+        kinds.setdefault(kind, []).append(
+            [list(a_packed.shape), list(b_packed.shape),
+             tiles[2] if tiles is not None else None])
+    if set(kinds) != {"none", "compact", "sgt"}:
+        raise AssertionError(f"serving path's GEMMs: {sorted(kinds)}")
+    emit(phase="serving_kernel_vs_plain", checks=len(calls), max_abs_err=max_err,
+         shapes={k: v[:3] for k, v in kinds.items()}, card=card)
+
+    # equality: one traffic of 300 requests x 2 rounds through every variant
+    eq = reqs[:SERVE_EQ_REQUESTS]
+    variants = (
+        ("cuda_vpu_compact", dict(), "bitserial_gemm", "gcn"),
+        ("torch_dot", dict(backend="torch_dot"), None, "gcn"),
+        ("cuda_sgt", dict(policy=api.ExecutionPolicy(jump="sgt")),
+         "bitserial_gemm", "gcn"),
+        ("cuda_mxu_compact", dict(policy=api.ExecutionPolicy(mode="mxu",
+                                                             jump="compact")),
+         "bitserial_gemm_mxu", "gcn"),
+        ("jump_none", dict(policy=api.ExecutionPolicy()), "bitserial_gemm", "gcn"),
+        ("scratch", dict(cache_entries=0), "bitserial_gemm", "gcn"),
+        ("gin_cuda_compact", dict(model="qgtc-gin"), "bitserial_gemm", "gin"),
+        ("gin_torch_dot", dict(model="qgtc-gin", backend="torch_dot"), None,
+         "gin"))
+    runs = {}
+    for name, kw, kernel, model in variants:
+        srv_v = server(**kw)
+        bitserial.reset_launches()
+        t0 = time.perf_counter()
+        runs[name] = _serve_rounds(srv_v, eq, SERVE_EQ_ROUNDS)
+        seconds = time.perf_counter() - t0
+        expected = PER_FORWARD[model] * srv_v.stats.batches if kernel else 0
+        got = (_check_launches(bitserial, kernel, expected, name) if kernel
+               else sum(bitserial.LAUNCHES.values()))
+        if got != expected:
+            raise AssertionError(f"serving {name} launched {got} kernels")
+        if name == "cuda_mxu_compact":
+            launches["bitserial_gemm_mxu"] = got
+        ref = "gin_torch_dot" if model == "gin" else "cuda_vpu_compact"
+        if ref in runs and name != ref:
+            _equal_logits(torch, runs[name], runs[ref], f"{name} vs {ref}")
+        emit(phase="serving_equal", variant=name, requests=len(eq),
+             rounds=SERVE_EQ_ROUNDS, batches=srv_v.stats.batches,
+             launches=got, kernel=kernel, equal_to=ref if name != ref else None,
+             cache_hit_rate=srv_v.cache.hit_rate if srv_v.cache else None,
+             n_compiles=srv_v.n_compiles, seconds=seconds, card=card)
+    _equal_logits(torch, runs["gin_cuda_compact"], runs["gin_torch_dot"], "gin")
+
+    # the first two batches against the port on the CPU (the kernels' plain
+    # versions there): the same plans, the logits within 1e-5
+    mb = MicroBatcher(buckets, align=align)
+    for r in eq:
+        mb.add(_fresh_request(r))
+    n_two = sum(len(mb.next_plan().requests) for _ in range(2))
+    cpu_srv = GNNServer(qp, cfg, policy=compact, tuning_table=None,
+                        buckets=buckets, devices=["cpu"])
+    on_cpu = _serve_rounds(cpu_srv, eq[:n_two], 1)[0]
+    diff = max(float(abs(a - b).max())
+               for a, b in zip(on_cpu, runs["cuda_vpu_compact"][0][:n_two]))
+    if cpu_srv.stats.batches != 2 or diff > 1e-5 or not all(
+            torch.allclose(torch.from_numpy(a), torch.from_numpy(b),
+                           rtol=1e-5, atol=1e-5)
+            for a, b in zip(on_cpu, runs["cuda_vpu_compact"][0][:n_two])):
+        raise AssertionError(f"serving: card and CPU logits differ by {diff} "
+                             f"over {cpu_srv.stats.batches} batches")
+    emit(phase="serving_reference", batches=2, requests=n_two,
+         card_vs_cpu_max_abs=diff, card=card)
+    del runs
+
+    # failover: three virtual replicas on the card, one killed mid-serve;
+    # single-request plans (node budget = one tile), so a request's logits
+    # do not depend on what it was coalesced with
+    fo_reqs = [r for r in reqs if r.n_nodes <= align][:SERVE_FAILOVER_REQUESTS]
+    outs, hit_rates, fo_servers = {}, {}, {}
+    for name, chaos in (("clean", None), ("failover", FaultInjector("kill@2"))):
+        fo = server(replicas=3, node_budget=align, chaos=chaos)
+        outs[name], hit_rates[name] = [], []
+        for _ in range(SERVE_FAILOVER_ROUNDS):
+            h0, m0 = fo.cache.hits, fo.cache.misses
+            outs[name] += _serve_rounds(fo, fo_reqs, 1)
+            dh, dm = fo.cache.hits - h0, fo.cache.misses - m0
+            hit_rates[name].append(dh / max(dh + dm, 1))
+        fo_servers[name] = (fo, chaos)
+    _equal_logits(torch, outs["failover"], outs["clean"], "failover vs clean")
+    fo, chaos = fo_servers["failover"]
+    st = fo.stats
+    lost = SERVE_FAILOVER_ROUNDS * len(fo_reqs) - st.requests
+    if (lost or st.replicas_live != 2 or st.replica_faults != 1
+            or not chaos.fired or hit_rates["failover"][-1] < 0.9):
+        raise AssertionError(f"failover: lost {lost}, live {st.replicas_live}, "
+                             f"faults {st.replica_faults}, final hit rate "
+                             f"{hit_rates['failover'][-1]}")
+    emit(phase="serving_failover", requests=len(fo_reqs),
+         rounds=SERVE_FAILOVER_ROUNDS, lost=lost, logits_equal_clean=True,
+         replicas_live=st.replicas_live, retried=st.requests_retried,
+         rehomed_entries=st.cache_rehomed_entries,
+         rehomed_bytes=st.cache_rehomed_bytes, fired=chaos.fired,
+         hit_rate_by_round=hit_rates["failover"], mesh_plan=fo.mesh_plan(),
+         card=card)
+    del outs, fo_servers, fo
+
+    # where the time goes: cold and warm batches under the profiler, then
+    # the host's split in a second pass without it
+    prof_reqs = reqs[-SERVE_PROFILED_BATCHES * BATCH_PARTS:]
+    for temp in ("cold", "warm"):
+        for mode in ("profile", "split"):
+            srv_p = server()
+            if temp == "warm":
+                _serve_rounds(srv_p, prof_reqs, 1)
+            for r in prof_reqs:
+                srv_p.submit(_fresh_request(r))
+            b0 = srv_p.stats.batches
+            torch.cuda.synchronize()
+            if mode == "profile":
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    srv_p.drain()
+                    wall = time.perf_counter() - t0
+                nb = srv_p.stats.batches - b0
+                kernels = [e for e in prof.key_averages()
+                           if e.device_type == DeviceType.CUDA]
+                device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+                gemm = [e for e in kernels if "bitserial_tile_kernel" in e.key]
+                top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+                emit(phase="serving_profile", batches=temp, n=nb,
+                     host_wall_ms_per_batch=wall * 1e3 / nb,
+                     device_ms_per_batch=(device_ms / nb if kernels
+                                          else "not measured"),
+                     device_idle_share=(1 - device_ms / (wall * 1e3)
+                                        if kernels else "not measured"),
+                     device_ops_per_batch=sum(e.count for e in kernels) / nb,
+                     gemm_kernel_ms_per_batch=(
+                         sum(e.self_device_time_total for e in gemm) / 1e3 / nb
+                         if gemm else "not measured"),
+                     top_device_ms=[[e.key[:60], e.self_device_time_total / 1e3
+                                     / nb, e.count / nb] for e in top],
+                     card=card)
+            else:
+                split = _HostSplit(srv_p)
+                try:
+                    t0 = time.perf_counter()
+                    srv_p.drain()
+                    wall = time.perf_counter() - t0
+                finally:
+                    split.close()
+                nb = srv_p.stats.batches - b0
+                emit(phase="serving_host_split", batches=temp, n=nb,
+                     host_wall_ms_per_batch=wall * 1e3 / nb,
+                     **{f"{k}_ms_per_batch": v * 1e3 / nb
+                        for k, v in split.seconds.items()}, card=card)
+
+    # the entry points: the serve suite, the --gnn launcher, the example
+    t0 = time.perf_counter()
+    records = _quiet(run.main, device=DEVICE, suites=["serve"])
+    for r in records:
+        emit(phase="serving_suite", **r, card=card)
+    emit(phase="serving_suite_done", records=len(records),
+         seconds=time.perf_counter() - t0, card=card)
+    t0 = time.perf_counter()
+    summary = _quiet(serve_cli.main, argv=SERVE_CLI)
+    want = 8 * 2
+    if summary["requests"] != want or summary["requests_shed"]:
+        raise AssertionError(f"launcher served {summary['requests']} of {want}")
+    emit(phase="serving_launcher", argv=SERVE_CLI, requests=summary["requests"],
+         batches=summary["batches"], n_compiles=summary["n_compiles"],
+         batch_p50_ms=summary["batch_p50_s"] * 1e3,
+         batch_p95_ms=summary["batch_p95_s"] * 1e3,
+         nodes_per_s=summary["nodes_per_s"], device=summary["device"],
+         seconds=time.perf_counter() - t0, card=card)
+    t0 = time.perf_counter()
+    result = _quiet(train_cluster_gcn.main, argv=SERVE_EXAMPLE)
+    losses = [r["loss"] for r in result["history"]]
+    if not all(math.isfinite(x) for x in losses) or not result["serve"]["batches"]:
+        raise AssertionError(f"example: losses {losses}")
+    emit(phase="serving_example", argv=SERVE_EXAMPLE, loss_first=losses[0],
+         loss_last=losses[-1], qat_acc=result["qat_acc"],
+         int_acc=result["int_acc"], serve_batches=result["serve"]["batches"],
+         serve_batch_p50_ms=result["serve"]["batch_p50_s"] * 1e3,
+         seconds=time.perf_counter() - t0, card=card)
+    emit(phase="serving_done", seconds=time.perf_counter() - t_phase, card=card)
+    return launches, max_err
+
+
 def main() -> int:
     import torch
 
@@ -2250,6 +2685,10 @@ def main() -> int:
     phase_figures(torch, card)
     with no_fallback():
         phase_training(torch, card, data, parts)
+        serve_launches, serve_err = phase_serving(torch, card, data, parts)
+    for name, n in serve_launches.items():
+        launches[name] += n
+    errs["bitserial_gemm"] = max(errs["bitserial_gemm"], serve_err)
     # the kernels line carries wq_gemm at the gate projection, batch 1
     timing["wq_gemm"] = phase_wq_timing(torch, card, wq_packed)[("wg", 1)]
 

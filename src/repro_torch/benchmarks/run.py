@@ -6,9 +6,11 @@ name,value,unit,tag,extras.
   python -m repro_torch.benchmarks.run --out BENCH_torch_figures.json
   python -m repro_torch.benchmarks.run --suite table2     # one suite
 
-Runs fig7, fig8a, fig8b, fig8c, fig9a, fig9b and table2 (QAT accuracy
-against bits, the int arm through the integer training path) at the
-reference's default sizes (``--smoke``: the tiny sizes of ``SMOKE``). A
+Runs fig7, fig8a, fig8b, fig8c, fig9a, fig9b, table2 (QAT accuracy
+against bits, the int arm through the integer training path) and serve
+(``serve_throughput``'s arms: continuous batching, jumping, overload,
+shuffled coalescing, failover) at the reference's default sizes
+(``--smoke``: the tiny sizes of ``SMOKE``). A
 suite whose check fails fails the run. ``--out`` writes every record as JSON, with the device it
 ran on, to a file of its own; the reference's ``BENCH_kernels.json`` holds
 the reference's records and is never written here.
@@ -24,7 +26,8 @@ import torch
 
 from repro_torch.benchmarks import (common, fig7_speedup, fig8a_lowbit_gemm,
                                     fig8b_zerotile, fig8c_adjsize, fig9a_reuse,
-                                    fig9b_transfer, table2_accuracy)
+                                    fig9b_transfer, serve_throughput,
+                                    table2_accuracy)
 from repro_torch.device import resolve_device
 
 SUITES = [
@@ -35,6 +38,7 @@ SUITES = [
     ("fig9a", fig9a_reuse.main),
     ("fig9b", fig9b_transfer.main),
     ("table2", table2_accuracy.main),
+    ("serve", serve_throughput.run_arms),
 ]
 
 # the smallest sizes each suite runs at: a check of the code paths, on the CPU
@@ -48,6 +52,7 @@ SMOKE = {
     "fig9b": dict(scale=0.005),
     "table2": dict(scale=0.005, steps=3, dsets=("ogbn-arxiv",),
                    bits_list=("fp32", 8)),
+    "serve": dict(sizes=serve_throughput.SMOKE_KW),
 }
 
 RESERVED = "BENCH_kernels.json"

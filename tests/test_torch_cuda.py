@@ -1120,3 +1120,72 @@ def test_trainer_runs_both_paths_on_card(cuda_device, train_setup):
         acc = trainer.evaluate(params, data, parts, cfg, qat=True,
                                device=cuda_device)
         assert 0.0 <= acc <= 1.0
+
+
+# ------------------------------------------------------------------ serving
+
+@pytest.fixture(scope="module")
+def serve_setup():
+    """ogbn-arxiv at 0.008, 8 parts: requests, buckets, qgtc-gcn 8-bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.graph import datasets, partition
+    from repro_torch.serve import requests_from_partitions
+    from repro_torch.serve.queue import buckets_for
+
+    data = datasets.load("ogbn-arxiv", scale=0.008, seed=0)
+    reqs = requests_from_partitions(data, partition.partition(data.csr, 8))
+    cfg = gnn.GNNConfig.paper_gcn(data.features.shape[1], data.n_classes)
+    params = gnn.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                             device="cuda")
+    return cfg, gnn.quantize_params(params, cfg), reqs, buckets_for(reqs, levels=3)
+
+
+def _serve(serve_setup, rounds=2, **kw):
+    """Serve the traffic ``rounds`` times; (server, logits in submit order)."""
+    from repro_torch.serve import GNNServer, SubgraphRequest
+
+    cfg, qp, reqs, buckets = serve_setup
+    srv = GNNServer(qp, cfg, buckets=buckets, tuning_table=None,
+                    devices=["cuda"], **kw)
+    out = []
+    for _ in range(rounds):
+        ids = [srv.submit(SubgraphRequest(edges=r.edges, features=r.features,
+                                          n_nodes=r.n_nodes)) for r in reqs]
+        got = srv.drain(return_logits=True)
+        out += [got[i][1] for i in ids]
+    return srv, out
+
+
+@pytest.mark.parametrize("jump", ["none", "compact", "sgt"])
+@pytest.mark.parametrize("mode", ["vpu", "mxu"])
+def test_server_on_card_equals_torch_dot(cuda_device, serve_setup, mode, jump):
+    """GNNServer on the kernel engine serves the logits of the plain
+    engine on the card, bit for bit, through one kernel launched 6 times
+    a GCN batch."""
+    pol = api.ExecutionPolicy(mode=mode, jump=jump)
+    _, want = _serve(serve_setup, backend="torch_dot", policy=pol)
+    bitserial.reset_launches()
+    srv, got = _serve(serve_setup, backend="cuda", policy=pol)
+    kernel = "bitserial_gemm" if mode == "vpu" else "bitserial_gemm_mxu"
+    assert bitserial.LAUNCHES[kernel] == 6 * srv.stats.batches > 0
+    assert sum(bitserial.LAUNCHES.values()) == bitserial.LAUNCHES[kernel]
+    for g, w in zip(got, want):
+        assert torch.equal(torch.from_numpy(g), torch.from_numpy(w))
+    assert srv.cache.hits > 0 and srv.stats.replicas_live == 1
+
+
+def test_server_on_card_equals_the_cpu(cuda_device, serve_setup):
+    """The card's logits are the port's on the CPU within 1e-5."""
+    pol = api.ExecutionPolicy(jump="compact")
+    _, got = _serve(serve_setup, rounds=1, policy=pol)
+    cfg, qp, reqs, buckets = serve_setup
+    from repro_torch.serve import GNNServer, SubgraphRequest
+
+    cpu = GNNServer(qp, cfg, buckets=buckets, tuning_table=None, policy=pol,
+                    devices=["cpu"])
+    ids = [cpu.submit(SubgraphRequest(edges=r.edges, features=r.features,
+                                      n_nodes=r.n_nodes)) for r in reqs]
+    want = cpu.drain(return_logits=True)
+    for g, i in zip(got, ids):
+        np.testing.assert_allclose(g, want[i][1], rtol=1e-5, atol=1e-5)
