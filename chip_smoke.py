@@ -102,7 +102,9 @@ without printing a result:
      staging, H2D and device unpack + densify, the copy's rate against the
      rate of one 256 MB pinned copy.
   12. figures — repro_torch.benchmarks.run at the reference's default
-     sizes: fig7, fig8a, fig8b, fig8c, fig9a and fig9b, each line echoed as
+     sizes: fig7, fig8a, fig8b, fig8c, fig9a, fig9b and kernels
+     (kernel_bench: the bit GEMMs over jump modes, SGT against compact,
+     the serving arms, a training step of each arm), each line echoed as
      JSON; a suite's failed check fails the script.
   13. training — Cluster-GCN QAT at full width: qgtc-gcn (128->16->16->40)
      on the main path's graph and parts, every batch through
@@ -142,8 +144,22 @@ without printing a result:
      reference's sizes, the --gnn launcher and the train-then-serve
      example.
 
-Phases 3, 4, 13 and 14 run with the registry's fallback warning turned
-into an error: a path must stay on the engine it asks for.
+  15. tuning — a policy sweep (repro_torch.tune.sweep) of bitserial_mm at
+     the main path's adjacency and first feature GEMM, 8 bits, bands 0.0
+     and 0.9, four candidates, every arm equal to torch_dot as it is
+     timed; each cell's winner and times. The packaged tuning table
+     (src/repro_torch/tune/tables/h100_kernels.json) loaded strict, its
+     provenance naming this card. Then qgtc-gcn and qgtc-gin 8-bit on
+     batch 0 through forward_qgtc with no policy, under the packaged
+     table and with tuning off: logits equal, the launches of each mode
+     and the host ms of a forward in each run, and the policy the table
+     gave each GEMM.
+
+Phases 1-14 run with tuning off (tune.use_table(None)), so that they hold
+what they held before a table was packaged: the tuned path is measured in
+phase 15 alone. Phases 3, 4, 13, 14 and 15 run with the registry's
+fallback warning turned into an error: a path must stay on the engine it
+asks for.
 
 The line before the last lists each kernel as JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -196,6 +212,10 @@ SERVE_CLI = ["--gnn", "ogbn-arxiv", "--scale", "0.008", "--parts", "8",
              "--rounds", "2"]
 SERVE_EXAMPLE = ["--steps", "20"]
 PACKING_BITS = (8, 4, 1)
+# the tuning phase: the main path's adjacency and first feature GEMM
+TUNING_SHAPES = ((2304, 2304, 16), (2304, 128, 16))
+TUNING_CANDIDATES = ({}, {"mode": "mxu"}, {"jump": "compact"}, {"jump": "sgt"})
+TUNING_TIMED_FORWARDS = 20  # each run, the two in turns
 DEVICE = "cuda"
 BITS = (8, 4, 2)
 ST_PAIRS = ((1, 1), (1, 8), (2, 4), (3, 5), (8, 8))
@@ -1974,6 +1994,9 @@ def phase_figures(torch, card):
     figures = [name for name, _ in run.SUITES if name not in ("table2", "serve")]
     records = _quiet(run.main, device=DEVICE, suites=figures)
     for r in records:
+        r = dict(r)
+        if "phase" in r:  # kernel_bench tags its training lines phase=train
+            r["record_phase"] = r.pop("phase")
         emit(phase="figures", **r, card=card)
     suites = sorted({r["suite"] for r in records})
     if suites != sorted(figures):
@@ -2621,6 +2644,125 @@ def phase_serving(torch, card, data, parts):
     return launches, max_err
 
 
+def phase_tuning(torch, card, models, dbs):
+    """Policy tuning on the card (phase 15): a sweep at the main path's
+    shapes, the packaged table, and the 8-bit forwards of batch 0 under it
+    and with tuning off. Returns each kernel's launches in the forwards."""
+    from repro_torch.api import registry
+    from repro_torch.kernels import bitserial
+    from repro_torch.models import gnn
+    from repro_torch.tune import sweep
+    from repro_torch.tune import table as tune_table
+
+    t_phase = time.perf_counter()
+    config = {"name": "chip-smoke-tuning", "ops": ["bitserial_mm"],
+              "bits": [8], "sparsity_bands": [0.0, 0.9],
+              "shapes": [list(s) for s in TUNING_SHAPES], "backend": "cuda",
+              "candidates": [dict(c) for c in TUNING_CANDIDATES],
+              "iters": 20, "warmup": 3}
+    # run_sweep holds every arm equal to torch_dot (torch.equal) as it times it
+    res = sweep.run_sweep(config, log=lambda *_: None,
+                          source="chip_smoke.py:TUNING_CANDIDATES", device=DEVICE)
+    if res.rejected or len(res.records) != (len(TUNING_SHAPES) * 2
+                                            * len(TUNING_CANDIDATES)):
+        raise AssertionError(f"tuning sweep: {len(res.records)} arms, "
+                             f"rejected {res.rejected}")
+    for entry in res.table.entries:
+        arms = {json.dumps(r["candidate"]): r["median_ms"] for r in res.records
+                if (r["m"], r["k"], r["n"]) == entry.shape_bucket
+                and r["sparsity"] == entry.sparsity_band}
+        best = next(r["candidate"] for r in res.records
+                    if r.get("best") and (r["m"], r["k"], r["n"])
+                    == entry.shape_bucket and r["sparsity"] == entry.sparsity_band)
+        emit(phase="tuning_sweep", op=entry.op, bits=entry.bits,
+             band=entry.sparsity_band, shape=list(entry.shape_bucket),
+             best=best, best_ms=entry.median_ms, default_ms=entry.baseline_ms,
+             arms_ms=arms, arms_equal_torch_dot=True, card=card)
+    sweep_s = time.perf_counter() - t_phase
+
+    packaged = tune_table.TuningTable.load(tune_table.DEFAULT_TABLE_PATH,
+                                           strict=True)
+    kind = torch.cuda.get_device_name(0)
+    if packaged.meta.get("device") != kind:
+        raise AssertionError(f"the packaged table was measured on "
+                             f"{packaged.meta.get('device')!r}, not on {kind!r}")
+    emit(phase="tuning_table", path=str(tune_table.DEFAULT_TABLE_PATH.relative_to(REPO)),
+         entries=len(packaged), measured_on=packaged.meta.get("card"),
+         commit=packaged.meta.get("commit"), this_card=card)
+
+    asked = {}
+    real = registry._tuned_policy
+
+    def spy(op, **kw):
+        pol = real(op, **kw)
+        asked[op, kw["bits"], kw["shape"]] = pol
+        return pol
+
+    db = dbs[0]
+    runs = {"tuned": packaged, "untuned": None}
+    launches = dict.fromkeys(bitserial.LAUNCHES, 0)
+    for name, (_, _, per_bits) in models.items():
+        cfg_b, qp = per_bits[8]
+
+        def fn():
+            return gnn.forward_qgtc(qp, db["adj"], db["x"], db["inv_deg"], cfg_b)
+
+        policies, logits = {}, {}
+        for run, tbl in runs.items():  # warm-up, and the policy of each GEMM
+            asked.clear()
+            registry._tuned_policy = spy
+            try:
+                with tune_table.use_table(tbl):
+                    logits[run] = fn()
+            finally:
+                registry._tuned_policy = real
+            policies[run] = [[op, bits, list(shape) if shape else None,
+                              None if pol is None else
+                              {"mode": pol.mode, "jump": pol.jump,
+                               "tile": [pol.block_m, pol.block_n, pol.block_w]}]
+                             for (op, bits, shape), pol in asked.items()]
+        torch.cuda.synchronize()
+        if not torch.equal(logits["tuned"], logits["untuned"]):
+            raise AssertionError(f"{name}: tuned logits differ from untuned")
+        counts = {run: dict.fromkeys(bitserial.LAUNCHES, 0) for run in runs}
+        times = {run: [] for run in runs}
+        for i in range(TUNING_TIMED_FORWARDS):  # in turns, each order in turn
+            for run in (("tuned", "untuned") if i % 2 == 0
+                        else ("untuned", "tuned")):
+                with tune_table.use_table(runs[run]):
+                    bitserial.reset_launches()
+                    t0 = time.perf_counter()
+                    out = fn()
+                    torch.cuda.synchronize()
+                    times[run].append((time.perf_counter() - t0) * 1e3)
+                    for k, v in bitserial.LAUNCHES.items():
+                        counts[run][k] += v
+                if not torch.equal(out, logits[run]):
+                    raise AssertionError(f"{name} {run}: logits changed")
+        for run in runs:
+            out = logits[run]
+            if out.shape != (db["adj"].shape[0], cfg_b.n_classes) or \
+                    not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"{name} {run}: bad logits")
+            per_fwd = sum(counts[run].values()) / TUNING_TIMED_FORWARDS
+            if per_fwd != PER_FORWARD[cfg_b.model]:
+                raise AssertionError(f"{name} {run}: {counts[run]} launches in "
+                                     f"{TUNING_TIMED_FORWARDS} forwards")
+            for k, v in counts[run].items():
+                launches[k] += v
+            emit(phase="tuning_forward", model=name, bits=8, run=run,
+                 forwards=TUNING_TIMED_FORWARDS,
+                 bitserial_gemm=counts[run]["bitserial_gemm"],
+                 bitserial_gemm_mxu=counts[run]["bitserial_gemm_mxu"],
+                 host_ms_median=statistics.median(times[run]),
+                 host_ms_min=min(times[run]), host_ms=times[run],
+                 policies=policies[run], card=card)
+        emit(phase="tuning_equal", model=name, bits=8, logits_equal=True)
+    emit(phase="tuning_done", sweep_s=sweep_s,
+         seconds=time.perf_counter() - t_phase, card=card)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2651,46 +2793,54 @@ def main() -> int:
          seconds=time.perf_counter() - t0, torch=torch.__version__,
          cuda=torch.version.cuda, int_rates=rates, card=card)
 
-    errs = {"bitserial_gemm": phase_kernel_vs_plain(torch, card)}
-    errs.update(phase_new_kernels_vs_plain(torch, card))
-    errs["wq_gemm"] = phase_wq_gemm_vs_plain(torch, card)
-    errs.update(phase_mxu_vs_plain(torch, card))
-    vpu_tile_errs = phase_vpu_tiles_vs_plain(torch, card)
-    for name, err in vpu_tile_errs.items():
-        errs[name] = max(errs[name], err)
-    # each path runs with every count at 0 just before it and read after it,
-    # and never leaves the engine it asks for
+    from repro_torch.tune import use_table
+
+    # phases 2-14 as they ran before a tuning table was packaged
+    with use_table(None):
+        errs = {"bitserial_gemm": phase_kernel_vs_plain(torch, card)}
+        errs.update(phase_new_kernels_vs_plain(torch, card))
+        errs["wq_gemm"] = phase_wq_gemm_vs_plain(torch, card)
+        errs.update(phase_mxu_vs_plain(torch, card))
+        vpu_tile_errs = phase_vpu_tiles_vs_plain(torch, card)
+        for name, err in vpu_tile_errs.items():
+            errs[name] = max(errs[name], err)
+        # each path runs with every count at 0 just before it and read after it,
+        # and never leaves the engine it asks for
+        with no_fallback():
+            (models, batches, dbs, tiles, path_launches, logits, data,
+             parts) = phase_main_path(torch, card)
+            launches = {"bitserial_gemm": path_launches}
+            launches["bitserial_gemm_mxu"] = phase_main_path_mxu(
+                torch, card, models, dbs, tiles, logits)
+            del logits
+            api_launches, kept = phase_tensor_api(torch, card, models, dbs)
+            launches.update({k: api_launches[k] for k in ("bitserial_fused", "bgemm",
+                                                           "bitpack")})
+            mxu_launches = phase_tensor_api_mxu(torch, card, kept)
+        launches.update({k: mxu_launches[k] for k in ("bitserial_fused_mxu",
+                                                       "bgemm_mxu")})
+        del kept
+        launches["wq_gemm"], wq_packed = phase_weight_only(torch, card)
+        timing = phase_timing(torch, card, rates, models, dbs, tiles)
+        timing.update(phase_new_kernel_timing(torch, card, rates, models, dbs))
+        phase_bitpack_timing(torch, card)
+        phase_fig9a(torch, card, dbs)
+        phase_profile(torch, card, models, dbs)
+        phase_packing(torch, card, batches[0], dbs[0])
+        phase_fig9b(torch, card, batches[0])
+        phase_figures(torch, card)
+        with no_fallback():
+            phase_training(torch, card, data, parts)
+            serve_launches, serve_err = phase_serving(torch, card, data, parts)
+        for name, n in serve_launches.items():
+            launches[name] += n
+        errs["bitserial_gemm"] = max(errs["bitserial_gemm"], serve_err)
+        # the kernels line carries wq_gemm at the gate projection, batch 1
+        timing["wq_gemm"] = phase_wq_timing(torch, card, wq_packed)[("wg", 1)]
     with no_fallback():
-        (models, batches, dbs, tiles, path_launches, logits, data,
-         parts) = phase_main_path(torch, card)
-        launches = {"bitserial_gemm": path_launches}
-        launches["bitserial_gemm_mxu"] = phase_main_path_mxu(
-            torch, card, models, dbs, tiles, logits)
-        del logits
-        api_launches, kept = phase_tensor_api(torch, card, models, dbs)
-        launches.update({k: api_launches[k] for k in ("bitserial_fused", "bgemm",
-                                                       "bitpack")})
-        mxu_launches = phase_tensor_api_mxu(torch, card, kept)
-    launches.update({k: mxu_launches[k] for k in ("bitserial_fused_mxu",
-                                                   "bgemm_mxu")})
-    del kept
-    launches["wq_gemm"], wq_packed = phase_weight_only(torch, card)
-    timing = phase_timing(torch, card, rates, models, dbs, tiles)
-    timing.update(phase_new_kernel_timing(torch, card, rates, models, dbs))
-    phase_bitpack_timing(torch, card)
-    phase_fig9a(torch, card, dbs)
-    phase_profile(torch, card, models, dbs)
-    phase_packing(torch, card, batches[0], dbs[0])
-    phase_fig9b(torch, card, batches[0])
-    phase_figures(torch, card)
-    with no_fallback():
-        phase_training(torch, card, data, parts)
-        serve_launches, serve_err = phase_serving(torch, card, data, parts)
-    for name, n in serve_launches.items():
+        tuned_launches = phase_tuning(torch, card, models, dbs)
+    for name, n in tuned_launches.items():
         launches[name] += n
-    errs["bitserial_gemm"] = max(errs["bitserial_gemm"], serve_err)
-    # the kernels line carries wq_gemm at the gate projection, batch 1
-    timing["wq_gemm"] = phase_wq_timing(torch, card, wq_packed)[("wg", 1)]
 
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():

@@ -9,7 +9,9 @@
   repro_torch.api.nn — functional layers (qlinear, qgraph_conv, wq_linear)
 
 Every dispatch function takes optional ``backend=`` / ``policy=``, which
-beat the active context.
+beat the active context. With no policy chosen anywhere, the GEMMs take
+the active tuning table's entry for their (op, bits, shape)
+(``repro_torch.tune``); a call that carries ``tiles=`` never consults it.
 """
 from __future__ import annotations
 
@@ -49,7 +51,9 @@ def _jump_kw(be, tiles):
 def bitserial_mm(aq, bq, s: int, t: int, *, backend=None, policy=None,
                  tiles=None):
     """Exact int32 (M,K)@(K,N) over unpacked unsigned s-bit x t-bit operands."""
-    be, pol = resolve("bitserial_mm", backend=backend, policy=policy, s=s, t=t)
+    be, pol = resolve("bitserial_mm", backend=backend, policy=policy, s=s, t=t,
+                      shape=(aq.shape[0], aq.shape[1], bq.shape[1]),
+                      tuned=tiles is None)
     return be.bitserial_mm_vals(aq, bq, s, t, policy=pol,
                                 **_jump_kw(be, tiles))
 
@@ -58,14 +62,20 @@ def bitserial_mm_packed(a_packed, b_packed, *, backend=None, policy=None,
                         tiles=None):
     """Exact int32 GEMM over packed (s,M,W) x (t,W,N) bit-plane operands."""
     s, t = a_packed.shape[0], b_packed.shape[0]
-    be, pol = resolve("bitserial_mm", backend=backend, policy=policy, s=s, t=t)
+    be, pol = resolve("bitserial_mm", backend=backend, policy=policy, s=s, t=t,
+                      shape=(a_packed.shape[1], 32 * a_packed.shape[2],
+                             b_packed.shape[2]),
+                      tuned=tiles is None)
     return be.bitserial_mm(a_packed, b_packed, policy=pol,
                            **_jump_kw(be, tiles))
 
 
 def bgemm(a_packed, b_packed, *, backend=None, policy=None, tiles=None):
     """1-bit (M,W) x (W,N) packed GEMM -> int32 (zero-tile jump per policy)."""
-    be, pol = resolve("bgemm", backend=backend, policy=policy)
+    be, pol = resolve("bgemm", backend=backend, policy=policy,
+                      shape=(a_packed.shape[0], 32 * a_packed.shape[1],
+                             b_packed.shape[1]),
+                      tuned=tiles is None)
     return be.bgemm(a_packed, b_packed, policy=pol, **_jump_kw(be, tiles))
 
 
@@ -89,7 +99,10 @@ def bitserial_fused(a_packed, b_packed, alpha, beta, *, out_bits: int,
     """Packed GEMM with the fused rescale+requantize epilogue (§4.5)."""
     s, t = a_packed.shape[0], b_packed.shape[0]
     be, pol = resolve("bitserial_fused", backend=backend, policy=policy,
-                      s=s, t=t)
+                      s=s, t=t,
+                      shape=(a_packed.shape[1], 32 * a_packed.shape[2],
+                             b_packed.shape[2]),
+                      tuned=tiles is None)
     return be.bitserial_fused(a_packed, b_packed, alpha, beta,
                               out_bits=out_bits, relu=relu, policy=pol,
                               **_jump_kw(be, tiles))

@@ -8,7 +8,9 @@
 
 Backend: explicit ``backend=`` > ``use()`` context > ``set_default`` >
 ``cuda``, the kernel engine. Policy: explicit ``policy=`` > ``use()`` >
-``set_default`` > DEFAULT_POLICY.
+``set_default`` > the active tuning table's nearest entry (only when no
+policy was chosen anywhere, and never for a call carrying precomputed
+tiles) > DEFAULT_POLICY.
 
 Fallback, as in the reference: if the context or default engine cannot
 run an op (probed via ``Backend.supports``), the first *registered* engine
@@ -111,18 +113,55 @@ def current() -> tuple[Backend, ExecutionPolicy]:
     return get_backend(name), pol
 
 
+def _policy_configured() -> bool:
+    """True when someone chose a policy (a ``use()`` context or
+    ``set_default``).
+
+    The tuning table only fills silence: a choice made per call, scoped
+    or process-wide always wins. The process default counts as chosen
+    once it is no longer the DEFAULT_POLICY object it started from
+    (identity, not equality: installing an equal policy is still a
+    choice)."""
+    ctx = _active.get()
+    if ctx is not None and ctx[1] is not None:
+        return True
+    return _default[1] is not DEFAULT_POLICY
+
+
+def _tuned_policy(op: str, *, bits: int, shape) -> ExecutionPolicy | None:
+    """The active tuning table's policy for this call, or None. Never
+    raises."""
+    try:
+        from repro_torch.tune import table as _table
+    except Exception:  # pragma: no cover - tune ships with the package
+        return None
+    return _table.dispatch_policy(op, bits=bits, shape=shape)
+
+
 def resolve(op: str, *, backend: str | Backend | None = None,
             policy: ExecutionPolicy | None = None,
-            s: int = 1, t: int = 1) -> tuple[Backend, ExecutionPolicy]:
+            s: int = 1, t: int = 1, shape=None,
+            tuned: bool = True) -> tuple[Backend, ExecutionPolicy]:
     """Pick the backend and policy for one op call.
 
     Explicit ``backend=`` pins the engine (raises if it cannot run the
     op); otherwise the context or default engine is used, falling back
     across the registry in registration order when it lacks the
     capability. Raises when no engine can run the op.
+
+    Policy: explicit ``policy=`` > ``use()`` context / ``set_default`` >
+    the active tuning table's nearest (op, bits, shape) entry, only when
+    ``tuned`` and no policy was chosen anywhere > DEFAULT_POLICY.
+    ``shape`` is the (m, k, n) hint for the table; dispatchers that carry
+    precomputed tile artifacts pass ``tuned=False``: the artifacts were
+    built on one tile grid, and a table policy must not swap it.
     """
     cur_be, cur_pol = current()
     pol = policy if policy is not None else cur_pol
+    if policy is None and tuned and not _policy_configured():
+        tpol = _tuned_policy(op, bits=max(s, t), shape=shape)
+        if tpol is not None:
+            pol = tpol
     if backend is not None:
         be = get_backend(backend)
         if not be.supports(op, s=s, t=t):

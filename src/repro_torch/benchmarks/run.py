@@ -5,11 +5,14 @@ name,value,unit,tag,extras.
   python -m repro_torch.benchmarks.run --device cpu --smoke   # tiny, CPU
   python -m repro_torch.benchmarks.run --out BENCH_torch_figures.json
   python -m repro_torch.benchmarks.run --suite table2     # one suite
+  python -m repro_torch.benchmarks.run --suite kernels    # kernel_bench
 
 Runs fig7, fig8a, fig8b, fig8c, fig9a, fig9b, table2 (QAT accuracy
 against bits, the int arm through the integer training path) and serve
 (``serve_throughput``'s arms: continuous batching, jumping, overload,
-shuffled coalescing, failover) at the reference's default sizes
+shuffled coalescing, failover) and kernels (``kernel_bench``: the
+bit-GEMMs over jump modes, SGT against compact, the serving arms, a
+training step of each arm) at the reference's default sizes
 (``--smoke``: the tiny sizes of ``SMOKE``). A
 suite whose check fails fails the run. ``--out`` writes every record as JSON, with the device it
 ran on, to a file of its own; the reference's ``BENCH_kernels.json`` holds
@@ -26,8 +29,8 @@ import torch
 
 from repro_torch.benchmarks import (common, fig7_speedup, fig8a_lowbit_gemm,
                                     fig8b_zerotile, fig8c_adjsize, fig9a_reuse,
-                                    fig9b_transfer, serve_throughput,
-                                    table2_accuracy)
+                                    fig9b_transfer, kernel_bench,
+                                    serve_throughput, table2_accuracy)
 from repro_torch.device import resolve_device
 
 SUITES = [
@@ -39,6 +42,7 @@ SUITES = [
     ("fig9b", fig9b_transfer.main),
     ("table2", table2_accuracy.main),
     ("serve", serve_throughput.run_arms),
+    ("kernels", kernel_bench.main),
 ]
 
 # the smallest sizes each suite runs at: a check of the code paths, on the CPU
@@ -53,6 +57,7 @@ SMOKE = {
     "table2": dict(scale=0.005, steps=3, dsets=("ogbn-arxiv",),
                    bits_list=("fp32", 8)),
     "serve": dict(sizes=serve_throughput.SMOKE_KW),
+    "kernels": dict(smoke=True),
 }
 
 RESERVED = "BENCH_kernels.json"

@@ -240,7 +240,7 @@ class GNNServer:
     (one nearest-bucket lookup per ``n_pad``, memoized, so each bucket
     keeps one policy). ``"auto"`` (the default) snapshots the active table
     from ``repro_torch.tune`` at construction (``use_table`` context >
-    ``install()`` > the packaged artifact, of which none is committed);
+    ``install()`` > the packaged H100 artifact);
     pass a path or TuningTable to pin one, or None to disable tuning. An explicit ``policy=`` always wins, and an unusable table
     file warns and degrades to the ambient policy — it never fails
     construction.

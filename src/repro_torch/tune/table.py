@@ -13,7 +13,8 @@ heaviest: it decides jump mode; then bits, then shape). The table is
 ADVISORY: every backend/policy pair returns bit-identical int32 results,
 so a wrong nearest match costs performance, never answers.
 
-Which table is active (consulted by ``serve.GNNServer``), in precedence
+Which table is active (consulted by ``api.resolve`` and
+``serve.GNNServer``), in precedence
 order:
 
   with use_table(t): ...        — contextvar-scoped (threads/async safe)
@@ -23,8 +24,10 @@ order:
                                   h100_kernels.json, written only by a
                                   sweep run on an H100
 
-No such artifact is committed, so ``default_table()`` is None and the
-ambient policy rules until a sweep on the card writes one. A corrupt,
+``tables/h100_kernels.json`` is that artifact, written by
+``repro_torch.launch.sweep`` on an H100 from ``sweeps/h100.json``, so
+``api.resolve`` and ``GNNServer(tuning_table="auto")`` consult it by
+default. A corrupt,
 stale (schema-mismatched) or missing table file, or one holding a policy
 the port's ``ExecutionPolicy`` rejects (the reference's CPU table tiles
 16 x 128, past the port's 1024 threads), warns once and resolves to "no
@@ -90,6 +93,23 @@ def policy_from_dict(d: dict) -> ExecutionPolicy:
     return ExecutionPolicy(**d)
 
 
+def _card_line() -> str | None:
+    """``name, power.limit`` of the first card as nvidia-smi prints them
+    (a card may be capped below its maximum and then runs slower), or None
+    when nvidia-smi cannot say."""
+    import subprocess
+
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30, check=True).stdout
+    except (OSError, subprocess.SubprocessError):
+        return None
+    lines = out.strip().splitlines()
+    return lines[0].strip() if lines else None
+
+
 def provenance(extra: dict | None = None) -> dict:
     """Host/toolchain/backend metadata stamped into tables and records.
 
@@ -110,6 +130,7 @@ def provenance(extra: dict | None = None) -> dict:
     try:
         if torch.cuda.is_available():
             meta["device"] = torch.cuda.get_device_name(0)
+            meta["card"] = _card_line()
     except RuntimeError:  # pragma: no cover - CUDA present but unusable
         pass
     from repro_torch import api
@@ -332,8 +353,8 @@ def _coerce(table):
 def default_table() -> TuningTable | None:
     """The packaged artifact (written by a sweep on an H100), if any.
 
-    A missing artifact is the normal state (no sweep has run on the
-    card), so it resolves to None silently; a CORRUPT artifact warns once.
+    A missing artifact resolves to None silently (a checkout may strip
+    it); a CORRUPT artifact warns once.
     """
     global _default_cache
     if _default_cache is AUTO:

@@ -35,6 +35,18 @@ def cuda_device():
     return torch.device("cuda")
 
 
+@pytest.fixture(autouse=True)
+def _untuned():
+    """Tuning off unless a test turns it on: the packaged table may move an
+    untiled GEMM to the other mode, and these tests count each mode's
+    launches or assume the default policy. The tuning tests scope their own
+    table inside."""
+    from repro_torch.tune import use_table
+
+    with use_table(None):
+        yield
+
+
 def _operand(rng, m, k, bits, pattern):
     a = rng.integers(0, 1 << bits, (m, k)).astype(np.int32)
     if pattern == "zero":
@@ -1189,3 +1201,70 @@ def test_server_on_card_equals_the_cpu(cuda_device, serve_setup):
     want = cpu.drain(return_logits=True)
     for g, i in zip(got, ids):
         np.testing.assert_allclose(g, want[i][1], rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------------------------------- tuning
+def test_smoke_sweep_on_card(cuda_device):
+    """The smoke grid on the card: every arm equal to torch_dot (asserted
+    inside run_sweep), one entry a cell and a bucket, the 1200-thread
+    candidate rejected legibly, the table stamped with this card."""
+    from repro_torch.tune import sweep
+
+    res = sweep.run_sweep(dict(sweep.SMOKE_CONFIG), log=lambda *_: None,
+                          source="smoke", device=cuda_device)
+    assert len(res.table) == 6 + 2
+    assert [r["source"] for r in res.rejected] == ["smoke:candidates[3]"]
+    assert all(r["median_ms"] > 0 for r in res.records)
+    meta = res.table.meta
+    assert meta["swept_on"] == "cuda"
+    assert meta["device"] == torch.cuda.get_device_name(0)
+    assert meta["card"] and meta["card"].endswith("W")
+
+
+def test_packaged_table_loads_strict_on_card(cuda_device):
+    """The packaged H100 table loads strict, was measured on this kind of
+    card, and holds a bitserial_mm entry at the main path's adjacency."""
+    from repro_torch.tune import table
+
+    t = table.TuningTable.load(table.DEFAULT_TABLE_PATH, strict=True)
+    assert t.meta["device"] == torch.cuda.get_device_name(0)
+    assert t.meta["generated_by"] == "repro_torch.launch.sweep"
+    assert t.lookup("bitserial_mm", bits=8, sparsity=0.0,
+                    shape=(2304, 2304, 16)).shape_bucket == (2304, 2304, 16)
+    assert {e.op for e in t.entries} >= {"bgemm", "bitserial_mm",
+                                         "bitserial_fused", "serve_forward"}
+
+
+@pytest.mark.parametrize("bits", [2, 8])
+@pytest.mark.parametrize("model", ["gcn", "gin"])
+def test_tuned_forward_equals_untuned_on_card(cuda_device, model, bits):
+    """forward_qgtc with no policy under the packaged table: the same logits
+    as with tuning off, through the layers' count of bit-serial launches in
+    whichever modes the table picked."""
+    from repro_torch.tune import table
+
+    packaged = table.TuningTable.load(table.DEFAULT_TABLE_PATH, strict=True)
+    rng = np.random.default_rng(bits)
+    n, d = 640, 128
+    adj = (rng.random((n, n)) < 0.02).astype(np.float32)
+    adj = torch.as_tensor(np.maximum(adj, adj.T), device=cuda_device)
+    x = torch.as_tensor(rng.normal(size=(n, d)).astype(np.float32),
+                        device=cuda_device)
+    inv_deg = 1.0 / (adj.sum(1, keepdim=True).float() + 1.0)
+    make = gnn.GNNConfig.paper_gcn if model == "gcn" else gnn.GNNConfig.paper_gin
+    cfg = dataclasses.replace(make(d, 40), x_bits=bits, w_bits=bits)
+    params = gnn.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                             device=cuda_device)
+    qp = gnn.quantize_params(params, cfg)
+    out = {}
+    for name, tbl in (("tuned", packaged), ("untuned", None)):
+        with table.use_table(tbl):
+            before = dict(LAUNCHES)
+            out[name] = gnn.forward_qgtc(qp, adj, x, inv_deg, cfg)
+            launched = {k: v - before[k] for k, v in LAUNCHES.items()
+                        if v != before[k]}
+        assert set(launched) <= {"bitserial_gemm", "bitserial_gemm_mxu"}
+        assert sum(launched.values()) == cfg.layers * (2 if model == "gcn"
+                                                       else 3)
+    torch.cuda.synchronize()
+    assert torch.equal(out["tuned"], out["untuned"])

@@ -230,7 +230,7 @@ def test_run_writes_the_records(tmp_path, monkeypatch):
         run.main(device="cpu", out=tmp_path / "BENCH_kernels.json")
     assert [s for s, _ in run.SUITES] == ["fig8a", "fig9a"]
     assert set(run.SMOKE) == {"fig7", "fig8a", "fig8b", "fig8c", "fig9a", "fig9b",
-                              "table2", "serve"}
+                              "table2", "serve", "kernels"}
 
 
 def test_percentile_and_latency_summary_equal_reference():

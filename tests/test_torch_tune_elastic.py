@@ -3,8 +3,8 @@ against the reference's ``repro.tune.table`` and ``repro.dist.elastic``.
 
 The tuning table: the same JSON round trip, the same nearest-bucket
 answers on a table of policies both packages accept, the active-table
-precedence, and the port's own defaults: no packaged table (only a sweep
-on an H100 may write one), and the reference's CPU table, whose 16 x 128
+precedence, and the port's own defaults: the packaged table, measured by
+the port's sweep on an H100, and the reference's CPU table, whose 16 x 128
 tiles the port's ExecutionPolicy rejects, loading as None with one
 warning. Elastic: ``replan_mesh`` and ``StragglerWatchdog`` equal on a
 grid of inputs, errors included.
@@ -118,14 +118,28 @@ def test_reference_cpu_table_loads_as_none_with_one_warning(monkeypatch):
 
 
 def test_no_packaged_table_and_active_precedence(tmp_path, monkeypatch):
-    """default_table() is None (nothing is packaged), so the active table
-    is whatever was installed or scoped; dispatch_policy follows it."""
+    """default_table() is the packaged H100 table (written by the port's
+    sweep on the card: it loads strict and its provenance is torch's and
+    CUDA's, not JAX's); an installed or scoped table takes precedence, and
+    dispatch_policy follows the active one."""
     assert table.DEFAULT_TABLE_PATH.name == "h100_kernels.json"
-    assert not table.DEFAULT_TABLE_PATH.exists()
+    packaged = table.TuningTable.load(table.DEFAULT_TABLE_PATH, strict=True)
+    meta = packaged.meta
+    assert meta["generated_by"] == "repro_torch.launch.sweep"
+    assert {"torch", "cuda", "device", "card", "commit"} <= set(meta)
+    assert "jax" not in meta and "jax_backend" not in meta
+    assert "H100" in meta["device"] and meta["swept_on"] == "cuda"
+    assert meta["card"].startswith(meta["device"]) and meta["card"].endswith("W")
     monkeypatch.setattr(table, "_default_cache", table.AUTO)
     monkeypatch.setattr(table, "_installed", table.AUTO)
-    assert table.default_table() is None and table.active_table() is None
-    assert table.dispatch_policy("bitserial_mm", bits=2) is None
+    assert table.default_table().to_dict() == packaged.to_dict()
+    assert table.active_table() is table.default_table()
+    assert table.dispatch_policy("bitserial_mm", bits=8,
+                                 shape=(2304, 2304, 16)) == packaged.policy_for(
+        "bitserial_mm", bits=8, shape=(2304, 2304, 16))
+    with table.use_table(None):
+        assert table.active_table() is None
+        assert table.dispatch_policy("bitserial_mm", bits=2) is None
     t = table.TuningTable.from_dict(_doc())
     table.install(t)
     assert table.active_table() is t
@@ -139,7 +153,7 @@ def test_no_packaged_table_and_active_precedence(tmp_path, monkeypatch):
     table.install(None)
     assert table.active_table() is None
     table.install()
-    assert table.active_table() is None
+    assert table.active_table() is table.default_table()
     meta = table.provenance({"run": 1})
     assert {"torch", "cuda", "backends", "run"} <= set(meta)
     assert "jax" not in meta and "cuda" in meta["backends"]
