@@ -155,6 +155,18 @@ without printing a result:
      and the host ms of a forward in each run, and the policy the table
      gave each GEMM.
 
+  16. analysis — the port's contract lint (repro_torch.launch.lint
+     --strict) on src/repro_torch: zero findings. The trace checker
+     (repro_torch.analysis.trace.run_trace_checks) on the card: every
+     registered engine at bits 1..8 (and 1x8, 8x1), jump mask, compact and
+     sgt tiles, the tiles= errors, the int training step at 4 and 8 bits
+     and the policy sites, with zero failures; every aten op seen, and on
+     the cuda engine a kernel launch for each integer op. Then torch_dot's
+     bitserial_mm on the card at (s, t) = (32, 32) on a 4 x 16 x 4 int32
+     input, (24, 24) at K = 4096 and (8, 8), each equal to the exact int64
+     product wrapped to int32 on the CPU, with no float GEMM among its
+     aten ops. Its launches join the kernels line.
+
 Phases 1-14 run with tuning off (tune.use_table(None)), so that they hold
 what they held before a table was packaged: the tuned path is measured in
 phase 15 alone. Phases 3, 4, 13, 14 and 15 run with the registry's
@@ -2763,6 +2775,73 @@ def phase_tuning(torch, card, models, dbs):
     return launches
 
 
+# phase 16: torch_dot on the card at operands past float64's exact range;
+# the first is a 4 x 16 x 4 product of whole int32s from default_rng(0)
+TORCH_DOT_CASES = ((32, 32, (4, 16, 4)), (24, 24, (64, 4096, 48)),
+                   (8, 8, (300, 700, 130)))
+
+
+def phase_analysis(torch, card):
+    """The contract lint and the trace checker on the card (phase 16), and
+    torch_dot's exact int32 product. Returns each kernel's launches."""
+    import numpy as np
+
+    from repro_torch import api
+    from repro_torch.analysis import trace
+    from repro_torch.kernels import _build
+    from repro_torch.launch import lint
+
+    t_phase = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = lint.main(["--strict"])
+    if rc != 0:
+        raise AssertionError(f"lint --strict: {out.getvalue()}")
+    emit(phase="analysis_lint", result=out.getvalue().strip(), card=card)
+
+    _build.reset_launches()
+    report = trace.run_trace_checks(device=DEVICE, log=lambda *_: None)
+    launches = dict(_build.LAUNCHES)
+    if report["failures"]:
+        raise AssertionError(f"trace checker: {report['failures']}")
+    if not all(launches[k] for k in ("bitserial_gemm", "bitserial_fused",
+                                     "bgemm")):
+        raise AssertionError(f"trace checker launched {launches}")
+    emit(phase="analysis_trace", device=report["device"],
+         backends=report["backends"], checks=report["checks"],
+         failures=len(report["failures"]),
+         policy_sites=report["policy_sites"], train_path=report["train_path"],
+         launches={k: v for k, v in launches.items() if v}, card=card)
+
+    rng = np.random.default_rng(0)
+    for s, t, (m, k, n) in TORCH_DOT_CASES:
+        a = rng.integers(-2**31, 2**31, (m, k)) if s == 32 else \
+            rng.integers(0, 1 << s, (m, k))
+        b = rng.integers(-2**31, 2**31, (k, n)) if t == 32 else \
+            rng.integers(0, 1 << t, (k, n))
+        # numpy's int64 matmul wraps modulo 2**64, which keeps the low word
+        want = (a.astype(np.int64) @ b.astype(np.int64)).astype(np.int32)
+        ta = torch.as_tensor(a.astype(np.int32), device=DEVICE)
+        tb = torch.as_tensor(b.astype(np.int32), device=DEVICE)
+        got, ops = trace.record_ops(lambda x, y: api.bitserial_mm(
+            x, y, s, t, backend="torch_dot"), ta, tb)
+        float_gemms = sorted({op for op in trace.float_ops(ops)
+                              if op in trace.GEMM_OPS})
+        if float_gemms:
+            raise AssertionError(f"torch_dot {s}x{t}: float GEMMs {float_gemms}")
+        if not np.array_equal(got.cpu().numpy(), want):
+            bad = int((got.cpu().numpy() != want).sum())
+            raise AssertionError(f"torch_dot {s}x{t} K={k}: {bad} of "
+                                 f"{want.size} entries differ from the "
+                                 f"exact product")
+        emit(phase="analysis_torch_dot", s=s, t=t, shape=[m, k, n],
+             equal_exact_int32=True,
+             gemm_ops=sorted({op for op, _ in ops if "mm" in op}), card=card)
+    emit(phase="analysis_done", seconds=time.perf_counter() - t_phase,
+         card=card)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2840,6 +2919,8 @@ def main() -> int:
     with no_fallback():
         tuned_launches = phase_tuning(torch, card, models, dbs)
     for name, n in tuned_launches.items():
+        launches[name] += n
+    for name, n in phase_analysis(torch, card).items():
         launches[name] += n
 
     kernels = []

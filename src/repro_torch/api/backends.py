@@ -1,9 +1,10 @@
 """Built-in execution backends: torch_dot, popcount, cuda.
 
   torch_dot — masked integer matmuls (the reference's xla_dot): int64 on
-              the CPU (an int8 matmul there wraps), float64 on the card,
-              which has no integer matmul for these shapes and is exact
-              while every sum stays below 2**53.
+              the CPU; on the card, which has no int64 matmul, 7-bit limbs
+              of the operands through int8 x int8 -> int32 products
+              (``int_matmul_mod32``), exact modulo 2**32 for every int32
+              input, as the reference's int32 dot is. No float GEMM runs.
   popcount  — packed AND+popcount in plain torch: the bit-exact oracle.
   cuda      — the hand-written kernels (kernels/ops.py) with zero-tile
               jumping; the default engine. On a CPU tensor each takes its
@@ -24,6 +25,7 @@ was asked for, which raises.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.api.backend import Backend
 from repro_torch.api.registry import register
@@ -32,7 +34,8 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels.bitpack import quantize_pack
 from repro_torch.kernels.bitserial import fused_epilogue
 
-__all__ = ["TorchDotBackend", "PopcountBackend", "CudaBackend"]
+__all__ = ["TorchDotBackend", "PopcountBackend", "CudaBackend",
+           "int_matmul_mod32"]
 
 _CORE_OPS = frozenset({"bitserial_mm", "bgemm", "bitpack", "bitserial_fused"})
 
@@ -46,11 +49,64 @@ def _wq_mm(x, wq, out_dtype):
     return (core * wq.scale + rowsum * wq.zero).to(out_dtype)
 
 
-def _int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Exact integer a @ b in int64."""
+_LIMB = 7              # a limb's values, 0..127, fit int8
+_K_CHUNK = 1 << 17     # 127 * 127 * 2**17 < 2**31: a chunk's int32 sum is exact
+
+
+def _int8_matmul(a8: torch.Tensor, b8: torch.Tensor) -> torch.Tensor:
+    """Exact (M, K) @ (K, N) of int8 tensors as int64, through
+    ``torch._int_mm`` (int8 x int8 -> int32 on the card's integer tensor
+    cores). K is split so that no int32 sum can overflow; the operands
+    are zero-padded to its CUDA shape rules (more than 16 rows, K and N
+    multiples of 8) and the result cropped."""
+    (m, k), n = a8.shape, b8.shape[1]
+    pad_k = -k % 8
+    a8 = F.pad(a8, (0, pad_k, 0, max(m + -m % 8, 24) - m))
+    b8 = F.pad(b8, (0, -n % 8, 0, pad_k))
+    acc = 0
+    for k0 in range(0, k + pad_k, _K_CHUNK):
+        acc = acc + torch._int_mm(a8[:, k0:k0 + _K_CHUNK].contiguous(),
+                                  b8[k0:k0 + _K_CHUNK].contiguous()
+                                  ).to(torch.int64)
+    return acc[:m, :n]
+
+
+def int_matmul_mod32(a: torch.Tensor, b: torch.Tensor, s: int = 32,
+                     t: int = 32) -> torch.Tensor:
+    """The low s bits of ``a`` (M, K) times the low t bits of ``b`` (K, N),
+    as int64 equal to the exact product modulo 2**32, with no float GEMM.
+
+    Each operand, taken as unsigned words, splits into 7-bit limbs
+    (``a = sum_i a_i 2^(7i)``); the limb products are exact int8 GEMMs,
+    and ``sum_ij (a_i @ b_j) << 7(i + j)`` is the product. Pairs shifted
+    by 32 or more vanish modulo 2**32 and are skipped: at s = t = 8 four
+    products, at 32 fifteen. Runs on any device; it is torch_dot's route
+    on the card.
+    """
+    a = a.to(torch.int64) & ((1 << s) - 1)
+    b = b.to(torch.int64) & ((1 << t) - 1)
+    limbs_b = [((b >> (_LIMB * j)) & 0x7F).to(torch.int8)
+               for j in range(-(-t // _LIMB))]
+    acc = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.int64,
+                      device=a.device)
+    for i in range(-(-s // _LIMB)):
+        a_i = ((a >> (_LIMB * i)) & 0x7F).to(torch.int8)
+        for j, b_j in enumerate(limbs_b):
+            if _LIMB * (i + j) < 32:
+                acc += _int8_matmul(a_i, b_j) << (_LIMB * (i + j))
+    return acc
+
+
+def _int_matmul(a: torch.Tensor, b: torch.Tensor, s: int,
+                t: int) -> torch.Tensor:
+    """The low s bits of a times the low t bits of b, equal to the exact
+    integer product modulo 2**32: int64 on the CPU, the limb route on the
+    card."""
+    mask_a = (1 << s) - 1 if s < 32 else -1
+    mask_b = (1 << t) - 1 if t < 32 else -1
     if a.device.type == "cpu":
-        return a.to(torch.int64) @ b.to(torch.int64)
-    return (a.to(torch.float64) @ b.to(torch.float64)).to(torch.int64)
+        return (a & mask_a).to(torch.int64) @ (b & mask_b).to(torch.int64)
+    return int_matmul_mod32(a, b, s, t)
 
 
 class _PlainTorchBackend(Backend):
@@ -78,9 +134,7 @@ class TorchDotBackend(_PlainTorchBackend):
         # One wide product over the bit-masked values: plane i of
         # bit_decompose reads exactly bit i, so masking to s (t) bits is
         # the plane sum.
-        mask_a = (1 << s) - 1 if s < 32 else -1
-        mask_b = (1 << t) - 1 if t < 32 else -1
-        return bitops.wrap_int32(_int_matmul(aq & mask_a, bq & mask_b))
+        return bitops.wrap_int32(_int_matmul(aq, bq, s, t))
 
     def bitserial_mm(self, a_packed, b_packed, *, policy):
         a_planes = bitops.unpack_along_axis(a_packed, dim=2)
@@ -89,7 +143,7 @@ class TorchDotBackend(_PlainTorchBackend):
                           dtype=torch.int64, device=a_packed.device)
         for i in range(a_planes.shape[0]):
             for j in range(b_planes.shape[0]):
-                acc += _int_matmul(a_planes[i], b_planes[j]) << (i + j)
+                acc += _int_matmul(a_planes[i], b_planes[j], 1, 1) << (i + j)
         return bitops.wrap_int32(acc)
 
     def bgemm(self, a_packed, b_packed, *, policy):

@@ -83,6 +83,8 @@ def main(device=None, smoke: bool = False, out=None,
         start = len(common.RECORDS)
         fn(device=dev, **(SMOKE[name] if smoke else {}))
         records += [{"suite": name, **r} for r in common.RECORDS[start:]]
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)  # the suite's own launches included
         print(f"# {name} took {time.time() - t0:.1f}s", flush=True)
     if out is not None:
         pathlib.Path(out).write_text(json.dumps(

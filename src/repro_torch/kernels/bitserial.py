@@ -155,6 +155,8 @@ def _check_epilogue(alpha, beta, m, n, out_bits):
         raise ValueError(f"out_bits must be in 1..{MAX_OUT_BITS}, got {out_bits}")
 
 
+# lint: allow[kernel-int-purity] — the §4.5 epilogue's float32 alpha, beta
+# and clip bound go to the kernel; its GEMM accumulator stays int32
 def bitserial_fused(a: torch.Tensor, b: torch.Tensor, alpha: torch.Tensor,
                     beta: torch.Tensor, *, out_bits: int, relu: bool,
                     block_m: int, block_n: int, block_w: int,
@@ -224,6 +226,8 @@ def bitserial_gemm_plain(a: torch.Tensor, b: torch.Tensor, *, block_m: int,
     return wrap_int32(acc)
 
 
+# lint: allow[kernel-int-purity] — the §4.5 requantize epilogue is float
+# by design, after the integer GEMM
 def fused_epilogue(acc: torch.Tensor, alpha, beta, out_bits: int,
                    relu: bool) -> torch.Tensor:
     """alpha*acc+beta -> (relu) -> floor+clip to unsigned out_bits (§4.5).

@@ -196,7 +196,8 @@ def train(data, parts, cfg: gnn.GNNConfig, tcfg: TrainConfig,
             params, ostate, loss, acc = train_step(params, ostate, dbatch, cfg,
                                                    ocfg, tcfg.qat)
         if step % tcfg.log_every == 0 or step == tcfg.steps - 1:
-            rec = {"step": step, "loss": float(loss), "acc": float(acc),
+            # .item() waits for the step, so elapsed_s is the work's time
+            rec = {"step": step, "loss": loss.item(), "acc": acc.item(),
                    "elapsed_s": time.time() - t0}
             history.append(rec)
             if callback:

@@ -160,6 +160,61 @@ def test_wide_bitwidths_exact_where_the_reference_is(engine):
                          backend="cuda")
 
 
+def _wide_case(s, t, m, k, n):
+    """Operands for torch_dot's card route: whole int32s at 32 bits (the
+    first case, default_rng(0) at 4 x 16 x 4, is the input where a float64
+    product is wrong in all 16 entries), unsigned values below."""
+    rng = np.random.default_rng(0)
+    lo_a, hi_a = (-2**31, 2**31) if s == 32 else (0, 1 << s)
+    lo_b, hi_b = (-2**31, 2**31) if t == 32 else (0, 1 << t)
+    return (rng.integers(lo_a, hi_a, (m, k)).astype(np.int32),
+            rng.integers(lo_b, hi_b, (k, n)).astype(np.int32))
+
+
+TORCH_DOT_CARD_CASES = [(32, 32, (4, 16, 4)), (24, 24, (20, 4096, 12)),
+                        (8, 8, (37, 333, 5)), (1, 8, (8, 65, 9))]
+
+
+@pytest.mark.parametrize("s,t,shape", TORCH_DOT_CARD_CASES)
+def test_torch_dot_card_route_exact_on_cpu_tensors(s, t, shape):
+    """torch_dot's card route (7-bit limbs through int8 x int8 -> int32
+    ``torch._int_mm``), run on CPU tensors, equals the exact product wrapped
+    to int32 and the reference's xla_dot, whose int32 dot wraps the same
+    way; so does the engine itself (its int64 CPU branch)."""
+    from repro_torch.api.backends import int_matmul_mod32
+
+    a, b = _wide_case(s, t, *shape)
+    want = (a.astype(np.int64) @ b.astype(np.int64)).astype(np.int32)
+    got = bitops.wrap_int32(int_matmul_mod32(torch.as_tensor(a),
+                                             torch.as_tensor(b), s, t))
+    np.testing.assert_array_equal(got.numpy(), want)
+    jwant = np.asarray(japi.bitserial_mm(jnp.asarray(a), jnp.asarray(b), s, t,
+                                         backend="xla_dot"))
+    np.testing.assert_array_equal(jwant, want)
+    eng = api.bitserial_mm(torch.as_tensor(a), torch.as_tensor(b), s, t,
+                           backend="torch_dot")
+    np.testing.assert_array_equal(eng.numpy(), want)
+    if s == t == 32:  # what the float64 route gave: wrong in every entry
+        f64 = (a.astype(np.float64) @ b.astype(np.float64))
+        low = np.asarray([int(v) % 2**32 for v in f64.ravel()], np.uint64)
+        assert (low.astype(np.uint32).view(np.int32) != want.ravel()).all()
+
+
+def test_torch_dot_card_route_splits_k(monkeypatch):
+    """K beyond the int32 accumulator's safe length runs in chunks; the
+    padding to _int_mm's CUDA shape rules (rows > 16, K and N multiples of
+    8) is cropped away."""
+    from repro_torch.api import backends
+
+    monkeypatch.setattr(backends, "_K_CHUNK", 16)
+    a, b = _wide_case(32, 7, 3, 70, 5)
+    want = (a.astype(np.int64) @ b.astype(np.int64)).astype(np.int32)
+    got = bitops.wrap_int32(backends.int_matmul_mod32(
+        torch.as_tensor(a), torch.as_tensor(b), 32, 7))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert tuple(got.shape) == (3, 5)
+
+
 def test_wide_bitwidths_fall_back_off_the_kernel_engine(monkeypatch):
     """With no ``backend=``, a 12-bit x 10-bit product on the default cuda
     engine falls back to torch_dot, the first registered engine that takes

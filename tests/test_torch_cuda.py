@@ -1268,3 +1268,44 @@ def test_tuned_forward_equals_untuned_on_card(cuda_device, model, bits):
                                                        else 3)
     torch.cuda.synchronize()
     assert torch.equal(out["tuned"], out["untuned"])
+
+
+# ------------------------------------------------------------------ analysis
+
+@pytest.mark.parametrize("s,t,shape", [(32, 32, (4, 16, 4)),
+                                       (24, 24, (64, 4096, 48)),
+                                       (8, 8, (300, 700, 130)),
+                                       (1, 8, (37, 333, 5))])
+def test_torch_dot_exact_int32_on_card(cuda_device, s, t, shape):
+    """torch_dot's card route (int8 limb products) equals the exact int64
+    product wrapped to int32, with no float GEMM among its aten ops; the
+    first case is a 4 x 16 x 4 product of whole int32s, where a float64
+    product is wrong in every entry."""
+    from repro_torch.analysis import trace
+
+    m, k, n = shape
+    rng = np.random.default_rng(0)
+    lo_a, hi_a = (-2**31, 2**31) if s == 32 else (0, 1 << s)
+    lo_b, hi_b = (-2**31, 2**31) if t == 32 else (0, 1 << t)
+    a, b = rng.integers(lo_a, hi_a, (m, k)), rng.integers(lo_b, hi_b, (k, n))
+    want = (a.astype(np.int64) @ b.astype(np.int64)).astype(np.int32)
+    ta = torch.as_tensor(a.astype(np.int32), device=cuda_device)
+    tb = torch.as_tensor(b.astype(np.int32), device=cuda_device)
+    got, ops = trace.record_ops(
+        lambda x, y: api.bitserial_mm(x, y, s, t, backend="torch_dot"), ta, tb)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    assert "_int_mm" in {op for op, _ in ops}
+    assert not set(trace.float_ops(ops)) & trace.GEMM_OPS
+
+
+def test_trace_checks_pass_on_card(cuda_device):
+    """Every engine's integer paths, the fused path, the tiles= errors, the
+    int training step and the policy sites, on the card: no failure, and
+    the cuda engine's ops launched their kernels."""
+    from repro_torch.analysis import trace
+
+    report = trace.run_trace_checks(device=cuda_device, log=lambda *_: None)
+    assert report["failures"] == []
+    assert report["device"].startswith("cuda")
+    assert {"bitserial_gemm", "bitserial_fused", "bgemm"} <= set(
+        report["launches"])

@@ -23,6 +23,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import api  # noqa: E402
+from repro_torch.analysis import trace  # noqa: E402
 from repro_torch.api import registry  # noqa: E402
 from repro_torch.api.backend import Backend, UnsupportedOpError  # noqa: E402
 from repro_torch.benchmarks import fig9b_transfer, run  # noqa: E402
@@ -31,6 +32,7 @@ from repro_torch.core import bitops, zerotile  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.graph import batching, datasets, packing, partition  # noqa: E402
 from repro_torch.kernels import bitserial, ops  # noqa: E402
+from repro_torch.launch import lint  # noqa: E402
 from repro_torch.models import gnn  # noqa: E402
 from repro_torch.train import intpath, trainer  # noqa: E402
 
@@ -125,6 +127,13 @@ def test_entry_points_need_a_card_unless_told_cpu(no_card):
              "nu": {"layer0": {"w": np.zeros(2)}}, "step": np.int32(0)}
     with pytest.raises(RuntimeError, match="device='cpu'"):
         adamw_state_from_jax(state)
+    # the trace checker and the lint's --trace, before any work
+    for entry in (lambda: trace.check_backend("torch_dot"),
+                  trace.check_train_path, trace.run_trace_checks,
+                  lambda: trace.main([]),
+                  lambda: lint.main(["--trace"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            entry()
     # asked for the CPU, every entry point works there
     assert resolve_device("cpu").type == "cpu"
     params = gnn.init_params(cfg, generator=gen, device="cpu")

@@ -351,13 +351,40 @@ def test_max_retries_bounds_refires(setup):
 
 def test_straggler_eviction(setup):
     """Replica 0 stalls on every batch after round 1: two consecutive
-    flags evict it."""
-    treqs = setup["treqs"]
-    chaos_ = FaultInjector(FaultSpec(kind="stall", at_batch=len(treqs),
-                                     replica=0, stall_s=0.5, repeat=16))
-    srv = _server(setup, replicas=3, chaos=chaos_, straggler_tolerance=2.0,
+    flags evict it.
+
+    Host load moves a batch's wall by 2x and more (under the full suite's
+    six workers about one healthy batch in five exceeded 2 x its replica's
+    p50), so the test leaves the watchdog nothing to misread. Round 1
+    serves six requests, two a replica; a replica's first wall is never
+    flagged, so none can collect two strikes there. Round 2 serves only
+    replica 0's requests, one at a time, stalled through serve/chaos.py,
+    until the watchdog evicts it. The stall is sized from round 1's walls
+    so that load cannot hide it: at 2 x tolerance x the slowest, a stalled
+    wall clears tolerance x the p50 of round 1's two walls, and of those
+    two and one stalled wall."""
+    tolerance = 2.0
+    srv = _server(setup, replicas=3, straggler_tolerance=tolerance,
                   straggler_strikes=2)
-    _rounds(srv, SubgraphRequest, treqs, 2)
+    first = [SubgraphRequest(edges=r.edges, features=r.features,
+                             n_nodes=r.n_nodes) for r in setup["treqs"][:6]]
+    ids = [srv.submit(r) for r in first]
+    assert set(ids) <= set(srv.drain())
+    served = {rep: len(wd.times) for rep, wd in srv._watchdogs.items()}
+    assert served == {0: 2, 1: 2, 2: 2}, served
+    stall = max(0.5, 2 * tolerance * max(srv._watchdogs[0].times))
+    srv._chaos = FaultInjector(FaultSpec(kind="stall",
+                                         at_batch=srv.stats.batches,
+                                         replica=0, stall_s=stall,
+                                         repeat=16))
+    for r in (r for r in first if r.replica == 0):
+        rid = srv.submit(SubgraphRequest(edges=r.edges, features=r.features,
+                                         n_nodes=r.n_nodes))
+        assert rid in srv.drain()
+        if 0 not in srv._router.replicas:
+            break
+    assert srv._chaos.fired and all(f["replica"] == 0
+                                    for f in srv._chaos.fired)
     assert srv.stats.replicas_evicted >= 1
     assert srv.stats.replicas_live == 2
     assert 0 not in srv._router.replicas

@@ -41,6 +41,17 @@ from repro_torch.tune.table import TableEntry, TuningTable  # noqa: E402
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs in several worker processes at once: one torch thread
+    each keeps them from oversubscribing the cores, which makes the timed
+    arms (kernel_bench's overload p95 comparison) swing with the load."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _entry(op="bitserial_mm", bits=2, band=0.0, shape=(8, 64, 8),
            jump="mask", **pol_kw):
     return TableEntry(op=op, bits=bits, sparsity_band=band,
