@@ -167,6 +167,27 @@ without printing a result:
      product wrapped to int32 on the CPU, with no float GEMM among its
      aten ops. Its launches join the kernels line.
 
+  17. LM serving — the port's LM stack (repro_torch.models.lm), which
+     reaches no hand-written kernel (the reference's reaches no Pallas
+     kernel). (a) Every one of the ten archs at its smoke config in
+     float32 (MoE dropless), weights drawn on the CPU: prefill and 4
+     teacher-forced decode steps on the card against the port on the CPU,
+     within 1e-4 relative, TF32 off. (b) Every arch at full width with its
+     depth cut (2 layers; whisper 2 + 2; zamba2 9, one attn_every group;
+     codeqwen1.5-7b its full 32), weights drawn on the card: in bf16,
+     prefill of 2 x 32 tokens and 8 greedy decode steps, logits finite; in
+     float32, the last position's logits through prefill + one decode step
+     against the scoring forward's (< 0.05, as the reference's own test).
+     (c) codeqwen1.5-7b at full width and depth through the --arch engine
+     (DecodeEngine): 4 slots, prompt 32, 64 new tokens, in bf16, with
+     4-bit weights (quantize_lm_params), and with int8 and int4 KV caches:
+     prefill ms, ms a token (p50/p95, each from the call of its decode
+     step to the host copy of its argmax), tokens/s, peak memory, the
+     decode bound (kernel_cost's HBM bytes of a step over 3.35 TB/s) and
+     its share, 5 decode steps under torch.profiler (device ms, idle share,
+     ops a step), and the greedy agreement of bf16 and 4-bit. (d) The
+     --arch launcher (rwkv6-1.6b --smoke) and the quantized-LM example.
+
 Phases 1-14 run with tuning off (tune.use_table(None)), so that they hold
 what they held before a table was packaged: the tuned path is measured in
 phase 15 alone. Phases 3, 4, 13, 14 and 15 run with the registry's
@@ -180,6 +201,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import io
 import itertools
 import json
@@ -2777,6 +2799,17 @@ def phase_tuning(torch, card, models, dbs):
 
 # phase 16: torch_dot on the card at operands past float64's exact range;
 # the first is a 4 x 16 x 4 product of whole int32s from default_rng(0)
+# LM serving (phase 17): the full-width runs' depth cuts, and the served cell
+LM_DEPTH = {"whisper-large-v3": dict(n_layers=2, enc_layers=2),
+            "zamba2-7b": dict(n_layers=9, attn_every=9),
+            "codeqwen1.5-7b": {}}      # full depth; any other arch: 2 layers
+LM_TEACHER_STEPS, LM_FREE_STEPS = 4, 8
+LM_SERVE = dict(arch="codeqwen1.5-7b", slots=4, prompt=32, max_new=64)
+LM_SERVE_RUNS = (("bf16", 0, 0), ("w4", 4, 0), ("bf16_kv8", 0, 8),
+                 ("bf16_kv4", 0, 4))   # (name, wq_bits, kv_bits)
+LM_PROFILED_STEPS = 5
+LM_CLI = ["--arch", "rwkv6-1.6b", "--smoke", "--requests", "4",
+          "--batch-slots", "2", "--max-new", "8"]
 TORCH_DOT_CASES = ((32, 32, (4, 16, 4)), (24, 24, (64, 4096, 48)),
                    (8, 8, (300, 700, 130)))
 
@@ -2838,6 +2871,268 @@ def phase_analysis(torch, card):
              equal_exact_int32=True,
              gemm_ops=sorted({op for op, _ in ops if "mm" in op}), card=card)
     emit(phase="analysis_done", seconds=time.perf_counter() - t_phase,
+         card=card)
+    return launches
+
+
+def _lm_rel(got, ref) -> float:
+    got, ref = got.float().cpu(), ref.float().cpu()
+    return float((got - ref).abs().max() / ref.abs().max().clamp(min=1e-12))
+
+
+def _lm_to(tree, device):
+    return {k: _lm_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def _lm_batch(torch, cfg, batch, seq, dtype):
+    from repro_torch.train import data
+
+    b = data.batch_for_arch(cfg, 0, 0, batch, seq, device=DEVICE)
+    return {k: v.to(dtype) if v.is_floating_point() else v for k, v in b.items()}
+
+
+def _lm_card_vs_cpu(torch, card):
+    """(a) every arch's smoke config on the card against the port on the
+    CPU, the same weights and tokens."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.train import data
+
+    worst = 0.0
+    for arch in configs.ARCHS:
+        cfg = dataclasses.replace(configs.smoke_config(configs.get(arch)),
+                                  dtype="float32")
+        if cfg.moe_experts:  # dropless: prefill and decode route alike
+            cfg = dataclasses.replace(
+                cfg, capacity_factor=float(cfg.moe_experts) / cfg.moe_top_k)
+        params, _ = lm.init_lm(cfg, torch.Generator().manual_seed(0),
+                               device="cpu")
+        batch = data.batch_for_arch(cfg, 0, 0, 2, 13 + LM_TEACHER_STEPS,
+                                    device="cpu")
+        batch = {k: v.float() if v.is_floating_point() else v
+                 for k, v in batch.items() if k != "labels"}
+        outs = {}
+        for dev in ("cpu", DEVICE):
+            p, b = _lm_to(params, dev), _lm_to(batch, dev)
+            logits, cache = lm.prefill(p, dict(b, tokens=b["tokens"][:, :13]),
+                                       cfg, max_seq=24)
+            got = [logits]
+            for i in range(LM_TEACHER_STEPS):
+                logits, cache = lm.decode_step(
+                    p, cache, b["tokens"][:, 13 + i:14 + i], cfg)
+                got.append(logits)
+            outs[dev] = got
+        errs = [_lm_rel(c, r) for c, r in zip(outs[DEVICE], outs["cpu"])]
+        if max(errs) > 1e-4 or not all(o.device.type == "cuda"
+                                       for o in outs[DEVICE]):
+            raise AssertionError(f"{arch}: card against CPU {errs}")
+        worst = max(worst, max(errs))
+        emit(phase="lm_card_vs_cpu", arch=arch, family=cfg.family,
+             max_rel_err=errs, card=card)
+    return worst
+
+
+def _lm_full_width_run(torch, cfg) -> dict:
+    """One full-width run of ``cfg`` on the card, its weights drawn there:
+    bf16, prefill + greedy decode, logits finite; float32, the decode step
+    against the scoring forward."""
+    from repro_torch.models import lm
+
+    params, _ = lm.init_lm(cfg, torch.Generator(device=DEVICE).manual_seed(0),
+                           device=DEVICE)
+    row = {"params": lm.param_count(params)}
+    if cfg.dtype == "bfloat16":
+        b = _lm_batch(torch, cfg, 2, 32, torch.bfloat16)
+        t0 = time.perf_counter()
+        logits, cache = lm.prefill(params, b, cfg,
+                                   max_seq=32 + LM_FREE_STEPS + 1)
+        finite = bool(torch.isfinite(logits).all())
+        for _ in range(LM_FREE_STEPS):
+            nxt = logits.argmax(-1).clamp(max=cfg.vocab - 1).to(torch.int32)
+            logits, cache = lm.decode_step(params, cache, nxt[:, None], cfg)
+            finite &= bool(torch.isfinite(logits).all())
+        torch.cuda.synchronize()
+        row["bf16_prefill_and_decode_s"] = time.perf_counter() - t0
+        if not finite:
+            raise AssertionError(f"{cfg.name} bf16: non-finite logits")
+        return row
+    b = _lm_batch(torch, cfg, 2, 17, torch.float32)
+    h = lm.forward_hidden(params, b, cfg)
+    want = h[:, -1] @ lm._head_matrix(params, cfg)
+    _, cache = lm.prefill(params, dict(b, tokens=b["tokens"][:, :-1]), cfg,
+                          max_seq=24)
+    got, _ = lm.decode_step(params, cache, b["tokens"][:, -1:], cfg)
+    row["decode_vs_forward"] = _lm_rel(got, want)
+    if not row["decode_vs_forward"] < 0.05:
+        raise AssertionError(f"{cfg.name}: decode diverges from forward {row}")
+    return row
+
+
+def _lm_full_width(torch, card):
+    """(b) every arch at full width, depth cut, in bf16 and in float32 (MoE
+    dropless there)."""
+    from repro_torch import configs
+
+    for arch in configs.ARCHS:
+        base = dataclasses.replace(configs.get(arch),
+                                   **LM_DEPTH.get(arch, dict(n_layers=2)))
+        row = {"arch": arch, "n_layers": base.n_layers,
+               "enc_layers": base.enc_layers}
+        with torch.no_grad():
+            row.update(_lm_full_width_run(torch, dataclasses.replace(
+                base, dtype="bfloat16")))
+            f32 = dataclasses.replace(base, dtype="float32")
+            if f32.moe_experts:
+                f32 = dataclasses.replace(f32, capacity_factor=float(
+                    f32.moe_experts) / f32.moe_top_k)
+            row.update(_lm_full_width_run(torch, f32))
+        torch.cuda.empty_cache()
+        emit(phase="lm_full_width", **row, card=card)
+
+
+def _lm_profile(torch, engine, prompts):
+    """LM_PROFILED_STEPS decode steps under torch.profiler (the device's
+    activity only: recording every host op would slow the host that sets
+    this path's pace), after a prefill."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import lm
+
+    cfg, params = engine.cfg, engine.params
+    with torch.no_grad():
+        logits, cache = lm.prefill(params, engine._inputs(prompts), cfg,
+                                   max_seq=engine.max_seq)
+        nxt = logits.argmax(-1).to(torch.int32).clamp(max=cfg.vocab - 1)[:, None]
+        logits, cache = lm.decode_step(params, cache, nxt, cfg)  # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(LM_PROFILED_STEPS):  # as the engine's loop
+                logits, cache = lm.decode_step(params, cache, nxt, cfg)
+                nxt = logits.argmax(-1).to(torch.int32).clamp(
+                    max=cfg.vocab - 1)[:, None]
+                nxt.cpu()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / LM_PROFILED_STEPS
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        return {"profile": "not measured", "host_wall_ms": wall_ms}
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / LM_PROFILED_STEPS
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    return {"host_wall_ms": wall_ms, "device_ms": device_ms,
+            "device_idle_share": 1 - device_ms / wall_ms,
+            "device_ops_per_step": sum(e.count for e in kernels) / LM_PROFILED_STEPS,
+            "top_device_ms": [[e.key[:60], e.self_device_time_total / 1e3
+                               / LM_PROFILED_STEPS] for e in top]}
+
+
+def _lm_serve(torch, card):
+    """(c) codeqwen1.5-7b at full width and depth through the --arch engine."""
+    from repro_torch import configs
+    from repro_torch.api import nn as qnn
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.serve import DecodeEngine
+    from repro_torch.models import lm
+    from repro_torch.perf import kernel_cost, report
+    from repro_torch.train import data
+
+    base = configs.get(LM_SERVE["arch"])
+    # what earlier phases still hold counts in max_memory_allocated: the
+    # model's own peak is the part above this, once their garbage is gone
+    gc.collect()
+    held_before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params, _ = lm.init_lm(base, torch.Generator(device=DEVICE).manual_seed(0),
+                           device=DEVICE)
+    torch.cuda.synchronize()
+    emit(phase="lm_serve_init", arch=base.name, seconds=time.perf_counter() - t0,
+         card=card)
+    n_params = lm.param_count(params)
+    slots, prompt_len, max_new = (LM_SERVE["slots"], LM_SERVE["prompt"],
+                                  LM_SERVE["max_new"])
+    max_seq = prompt_len + max_new + 8
+    prompts = data.synthetic_batch(0, 0, batch=slots, seq=prompt_len,
+                                   vocab=base.vocab, device="cpu")[0].numpy()
+    tokens = {}
+    for name, wq_bits, kv_bits in LM_SERVE_RUNS:
+        t_run = time.perf_counter()
+        cfg = dataclasses.replace(base, kv_bits=kv_bits)
+        p, qstats = params, None
+        if wq_bits:
+            p, qstats = qnn.quantize_lm_params(params, wq_bits)
+        engine = DecodeEngine(cfg, p, slots, max_seq=max_seq)
+        engine.generate(prompts, 4)  # warm: the allocator and the kernels
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out, _ = engine.generate(prompts, max_new)
+        peak = torch.cuda.max_memory_allocated()
+        tokens[name] = out
+        walls = engine.last_walls
+        steps = walls["token_s"][1:]  # token 0 is the prefill's argmax
+        p50 = report.percentile(steps, 50) * 1e3
+        shape = ShapeSpec("decode", "decode", max_seq, slots)
+        cost = kernel_cost.analytic_cost(cfg, shape, 1, n_params)
+        bound_ms = cost.hbm_bytes_per_device / PEAK_BYTES_S * 1e3
+        prof = _lm_profile(torch, engine, prompts)
+        row = dict(phase="lm_serve", arch=cfg.name, run=name, wq_bits=wq_bits,
+                   kv_bits=kv_bits, params=n_params, slots=slots,
+                   prompt=prompt_len, max_new=max_new,
+                   prefill_ms=walls["prefill_s"] * 1e3,
+                   decode_ms_per_token_p50=p50,
+                   decode_ms_per_token_p95=report.percentile(steps, 95) * 1e3,
+                   decode_s=walls["decode_s"],
+                   tok_per_s=out.size / walls["decode_s"],
+                   peak_memory_gb=peak / 1e9,
+                   peak_above_phase_start_gb=(peak - held_before) / 1e9,
+                   decode_bound_ms=bound_ms, bound_by="bytes",
+                   bound_bytes=cost.hbm_bytes_per_device,
+                   bound_share_p50=bound_ms / p50,
+                   **prof, seconds=time.perf_counter() - t_run, card=card)
+        if qstats is not None:
+            # a footprint: the forward reads the dequantized bf16 weights
+            row.update(n_quantized=qstats["n_quantized"],
+                       packed_footprint_ratio=qstats["ratio"],
+                       bound_note="the w4 forward reads bf16 weights: "
+                                  "the bf16 bound holds")
+        emit(**row)
+        del engine, p
+    agree = float((tokens["bf16"] == tokens["w4"]).mean())
+    emit(phase="lm_serve_agreement", bf16_vs_w4=agree,
+         bf16_vs_kv8=float((tokens["bf16"] == tokens["bf16_kv8"]).mean()),
+         bf16_vs_kv4=float((tokens["bf16"] == tokens["bf16_kv4"]).mean()),
+         card=card)
+    del params
+    torch.cuda.empty_cache()
+
+
+def phase_lm_serving(torch, card):
+    """Phase 17: the LM stack on the card. Returns the kernel launches it
+    made (the path reaches none)."""
+    from repro_torch.examples import serve_quantized_lm
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve
+
+    t_phase = time.perf_counter()
+    _build.reset_launches()
+    worst = _lm_card_vs_cpu(torch, card)
+    _lm_full_width(torch, card)
+    _lm_serve(torch, card)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result = serve.main(LM_CLI)
+        example = serve_quantized_lm.main([])
+    if (result["requests"] != 4 or result["device"] == "cpu"
+            or not out.getvalue().rstrip().endswith("OK")):
+        raise AssertionError(f"LM launcher or example: {out.getvalue()}")
+    emit(phase="lm_cli", launcher=result["stats"], example_agreement=
+         example["agreement"], example_n_quantized=example["n_quantized"],
+         card=card)
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    emit(phase="lm_done", card_vs_cpu_max_rel_err=worst,
+         kernel_launches=launches, seconds=time.perf_counter() - t_phase,
          card=card)
     return launches
 
@@ -2921,6 +3216,8 @@ def main() -> int:
     for name, n in tuned_launches.items():
         launches[name] += n
     for name, n in phase_analysis(torch, card).items():
+        launches[name] += n
+    for name, n in phase_lm_serving(torch, card).items():
         launches[name] += n
 
     kernels = []

@@ -1,0 +1,21 @@
+"""moonshot-v1-16b-a3b — kimi/moonlight MoE, 64 experts top-6.
+
+[hf:moonshotai/Moonlight-16B-A3B; hf-verified tier]
+48L d_model=2048 16H (GQA kv=16) d_ff=1408 vocab=163840, MoE 64e top-6.
+"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="moonshot-v1-16b-a3b",
+    family="moe",
+    n_layers=48,
+    d_model=2048,
+    n_heads=16,
+    n_kv_heads=16,
+    d_ff=1408,
+    vocab=163_840,
+    moe_experts=64,
+    moe_top_k=6,
+    mlp_type="swiglu",
+    norm="rms",
+)

@@ -9,8 +9,9 @@ scale, zero) and returns the port's ``BitTensor``; ``weightq_from_jax``
 does the same for a reference ``WeightQ``. ``adamw_state_from_jax`` and
 ``compression_state_from_jax`` carry the reference's optimizer state
 (``repro.train.optimizer``) across, and ``params_to_numpy`` turns the
-port's parameter dict back into numpy for comparison. None of them needs
-JAX.
+port's parameter dict back into numpy for comparison.
+``lm_params_from_jax`` carries the reference's ``repro.models.lm.init_lm``
+parameters across, keeping each leaf's dtype. None of them needs JAX.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ from repro_torch.train.optimizer import CompressionState
 
 __all__ = ["params_from_jax", "params_to_numpy", "adamw_state_from_jax",
            "compression_state_from_jax", "bittensor_from_jax",
-           "weightq_from_jax"]
+           "weightq_from_jax", "lm_params_from_jax"]
 
 
 def params_from_jax(params_np: dict, device=None) -> dict:
@@ -95,3 +96,26 @@ def weightq_from_jax(data, scale, zero, nbits: int, packed=None,
                    torch.tensor(np.asarray(scale, np.float32), device=dev),
                    torch.tensor(np.asarray(zero, np.float32), device=dev),
                    nbits, planes)
+
+
+def lm_params_from_jax(params_np: dict, device=None) -> dict:
+    """The reference's LM parameter tree with numpy leaves (``jax.tree.map(
+    np.asarray, params)``) -> the port's, on ``device`` (None means the
+    card): the same key paths, the stacked leading layer axis, each leaf's
+    dtype. A JAX bfloat16 leaf reaches numpy as ``ml_dtypes.bfloat16``,
+    which torch does not take: it goes through float32, which holds every
+    bf16 value exactly, then back to bf16."""
+    dev = resolve_device(device)
+
+    def leaf(x):
+        x = np.asarray(x)
+        if x.dtype.name == "bfloat16":
+            return torch.tensor(x.astype(np.float32), device=dev).to(
+                torch.bfloat16)
+        return torch.tensor(x, device=dev)
+
+    def visit(tree):
+        return {k: visit(v) if isinstance(v, dict) else leaf(v)
+                for k, v in tree.items()}
+
+    return visit(params_np)

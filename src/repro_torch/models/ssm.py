@@ -1,0 +1,416 @@
+"""Attention-free sequence mixers: RWKV6 (Finch) and Mamba2 (SSD), as the
+reference's ``repro.models.ssm``.
+
+Both come in two equivalent forms sharing one parameter dict:
+
+  chunked  — prefill: the sequence is cut into fixed chunks; the
+             intra-chunk part is a masked matmul with log-domain pairwise
+             decay (every exp() argument is <= 0, so it cannot overflow for
+             any data-dependent decay), and the inter-chunk part is a state
+             recurrence, here a Python loop over the chunks.
+  step     — decode: O(1) per-token recurrent update.
+
+The sequential forms (``gla_sequential``/``ssd_sequential``) are the
+token-by-token oracles: chunked == sequential to float32 tolerance.
+
+RWKV6 semantics (exclusive + bonus):   o_t = r_t . (S_{t-1} + diag(u) k_t v_t^T)
+                                       S_t = diag(w_t) S_{t-1} + k_t v_t^T
+Mamba2/SSD semantics (inclusive):      S_t = a_t S_{t-1} + B_t (dt_t x_t)^T
+                                       y_t = C_t . S_t + D x_t
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import Initializer, layer_norm, rms_norm
+
+__all__ = [
+    "gla_chunked", "gla_sequential", "gla_step",
+    "ssd_chunked", "ssd_sequential", "ssd_step",
+    "init_rwkv6_block", "rwkv6_block", "rwkv6_block_step", "rwkv6_state",
+    "init_mamba2_block", "mamba2_block", "mamba2_block_step", "mamba2_state",
+]
+
+F32 = torch.float32
+
+
+# =====================================================================
+# GLA-style chunked linear attention with per-channel decay (RWKV6 core)
+# =====================================================================
+
+def gla_chunked(r, k, v, lw, u, s0, chunk: int = 32):
+    """Per-channel-decay linear attention, chunked parallel form.
+
+    r, k, v, lw: (B, T, H, K) float32; lw = log decay, <= 0. u: (H, K)
+    bonus. s0: (B, H, K, V) initial state. Returns (out (B, T, H, V),
+    s_final).
+    """
+    b, t, h, kk = r.shape
+    vv = v.shape[-1]
+    t0 = t
+    pad = (-t) % chunk
+    if pad:
+        # neutral padding: k=0 (no state contribution), lw=0 (no decay)
+        r, k, v, lw = (F.pad(x, (0, 0, 0, 0, 0, pad)) for x in (r, k, v, lw))
+        t = t + pad
+    nc = t // chunk
+
+    def to_chunks(x):
+        # (B, T, H, X) -> (NC, B, H, L, X)
+        return x.reshape(b, nc, chunk, h, -1).permute(1, 0, 3, 2, 4)
+
+    rc, kc, vc, lwc = map(to_chunks, (r, k, v, lw))
+    # strict lower triangle: s < t
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=r.device), diagonal=-1)
+    tmask = tri[None, None, :, :, None]
+    s = s0
+    outs = []
+    for i in range(nc):
+        r_c, k_c, v_c, lw_c = rc[i], kc[i], vc[i], lwc[i]   # (B, H, L, K/V)
+        a = torch.cumsum(lw_c, dim=2)   # inclusive cumsum, <= 0, decreasing
+        a_prev = a - lw_c               # exclusive cumsum (a_{t-1})
+        # inter-chunk: o_t += (r_t * exp(a_{t-1})) @ S0        [exp arg <= 0]
+        o_inter = torch.einsum("bhlk,bhkv->bhlv", r_c * torch.exp(a_prev), s)
+        # intra-chunk: score[t,s] = sum_k r_t k_s exp(a_{t-1,k} - a_{s,k}),
+        # s < t; masked entries are zeroed before exp
+        d = a_prev[:, :, :, None, :] - a[:, :, None, :, :]   # (B,H,L,L,K)
+        p = torch.where(tmask, torch.exp(torch.where(tmask, d, 0.0)), 0.0)
+        p = p * k_c[:, :, None, :, :]
+        scores = torch.einsum("bhlk,bhlmk->bhlm", r_c, p)
+        bonus = (r_c * u[None, :, None, :] * k_c).sum(-1)     # diagonal term
+        o = o_inter + scores @ v_c + bonus[..., None] * v_c
+        # state to chunk end: exp(a_L) . S0 + sum_s exp(a_L - a_s) k_s v_s^T
+        rest = torch.exp(a[:, :, -1:, :] - a)                  # (B,H,L,K) <= 1
+        s = s * torch.exp(a[:, :, -1, :])[..., None] + torch.einsum(
+            "bhlk,bhlv->bhkv", k_c * rest, v_c)
+        outs.append(o)
+    out = torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(b, t, h, vv)
+    return out[:, :t0], s
+
+
+def gla_sequential(r, k, v, lw, u, s0):
+    """Token-by-token oracle for gla_chunked."""
+    s, outs = s0, []
+    for i in range(r.shape[1]):
+        o, s = gla_step(r[:, i], k[:, i], v[:, i], lw[:, i], u, s)
+        outs.append(o)
+    return torch.stack(outs, dim=1), s
+
+
+def gla_step(r_t, k_t, v_t, lw_t, u, s):
+    """One decode step. r_t..lw_t: (B, H, K); s: (B, H, K, V)."""
+    kv = k_t[..., :, None] * v_t[..., None, :]
+    o = torch.einsum("bhk,bhkv->bhv", r_t, s) + torch.einsum(
+        "bhk,bhkv->bhv", r_t * u[None], kv)
+    s = torch.exp(lw_t)[..., None] * s + kv
+    return o, s
+
+
+# =====================================================================
+# SSD: chunked scan with per-head scalar decay (Mamba2 core)
+# =====================================================================
+
+def ssd_chunked(x, a_log, B, C, s0, chunk: int = 128):
+    """Mamba2 SSD, chunked parallel form.
+
+    x: (B, T, H, P) pre-scaled by dt; a_log: (B, T, H) log decay <= 0;
+    B, C: (B, T, H, N) (groups already broadcast to heads);
+    s0: (B, H, N, P). Returns (y (B,T,H,P), s_final). Inclusive semantics.
+    """
+    b, t, h, p = x.shape
+    n = B.shape[-1]
+    t0 = t
+    pad = (-t) % chunk
+    if pad:
+        # neutral padding: B=0 (no state contribution), a_log=0 (no decay)
+        x, B, C = (F.pad(z, (0, 0, 0, 0, 0, pad)) for z in (x, B, C))
+        a_log = F.pad(a_log, (0, 0, 0, pad))
+        t = t + pad
+    nc = t // chunk
+
+    xc = x.reshape(b, nc, chunk, h, p).permute(1, 0, 3, 2, 4)
+    Bc = B.reshape(b, nc, chunk, h, n).permute(1, 0, 3, 2, 4)
+    Cc = C.reshape(b, nc, chunk, h, n).permute(1, 0, 3, 2, 4)
+    ac = a_log.reshape(b, nc, chunk, h).permute(1, 0, 3, 2)   # (NC,B,H,L)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=x.device))             # s <= t
+    tmask = tri[None, None]
+    s = s0
+    ys = []
+    for i in range(nc):
+        x_c, b_c, c_c, a_c = xc[i], Bc[i], Cc[i], ac[i]
+        ca = torch.cumsum(a_c, dim=2)                 # (B,H,L) inclusive
+        # inter: y_t += exp(ca_t) * C_t @ S0
+        y_inter = torch.einsum("bhln,bhnp->bhlp", c_c, s) \
+            * torch.exp(ca)[..., None]
+        # intra: score[t,s] = exp(ca_t - ca_s) * (C_t . B_s), s <= t
+        d = ca[:, :, :, None] - ca[:, :, None, :]     # <= 0 on the mask
+        w = torch.where(tmask, torch.exp(torch.where(tmask, d, 0.0)), 0.0)
+        scores = torch.einsum("bhln,bhmn->bhlm", c_c, b_c) * w
+        y = y_inter + scores @ x_c
+        rest = torch.exp(ca[:, :, -1:] - ca)           # (B,H,L) <= 1
+        s = s * torch.exp(ca[:, :, -1])[..., None, None] + torch.einsum(
+            "bhln,bhlp->bhnp", b_c * rest[..., None], x_c)
+        ys.append(y)
+    y = torch.stack(ys).permute(1, 0, 3, 2, 4).reshape(b, t, h, p)
+    return y[:, :t0], s
+
+
+def ssd_sequential(x, a_log, B, C, s0):
+    """Token-by-token oracle for ssd_chunked."""
+    s, ys = s0, []
+    for i in range(x.shape[1]):
+        y, s = ssd_step(x[:, i], a_log[:, i], B[:, i], C[:, i], s)
+        ys.append(y)
+    return torch.stack(ys, dim=1), s
+
+
+def ssd_step(x_t, a_t, b_t, c_t, s):
+    """x_t (B,H,P); a_t (B,H); b_t,c_t (B,H,N); s (B,H,N,P)."""
+    s = torch.exp(a_t)[..., None, None] * s + b_t[..., :, None] * x_t[..., None, :]
+    y = torch.einsum("bhn,bhnp->bhp", c_t, s)
+    return y, s
+
+
+# =====================================================================
+# RWKV6 block (Finch): data-dependent decay time-mix + relu^2 channel-mix
+# =====================================================================
+
+RWKV_HEAD = 64
+_DECAY_LORA = 64
+
+
+def init_rwkv6_block(ini: Initializer, cfg: ModelConfig) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    h = d // RWKV_HEAD
+    return {
+        "ln1_w": ini.ones((d,), ("norm",)), "ln1_b": ini.zeros((d,), ("norm",)),
+        "ln2_w": ini.ones((d,), ("norm",)), "ln2_b": ini.zeros((d,), ("norm",)),
+        # token-shift lerp weights for r, k, v, w, g
+        "mu": ini.zeros((5, d), (None, "embed")),
+        # data-dependent decay (the Finch signature): lw = -exp(w0 + tanh(xw A) B)
+        "w0": ini.normal((d,), ("embed",), scale=0.5),
+        "wa": ini.normal((d, _DECAY_LORA), ("embed", None)),
+        "wb": ini.normal((_DECAY_LORA, d), (None, "embed"), scale=0.01),
+        "u": ini.normal((h, RWKV_HEAD), ("heads", None), scale=0.5),
+        "wr": ini.normal((d, d), ("embed", "qkv")),
+        "wk": ini.normal((d, d), ("embed", "qkv")),
+        "wv": ini.normal((d, d), ("embed", "qkv")),
+        "wg": ini.normal((d, d), ("embed", "qkv")),
+        "wo": ini.normal((d, d), ("qkv", "embed")),
+        "gn_w": ini.ones((d,), ("norm",)), "gn_b": ini.zeros((d,), ("norm",)),
+        # channel mix (relu^2, hidden = d_ff)
+        "mu_c": ini.zeros((2, d), (None, "embed")),
+        "ck": ini.normal((d, f), ("embed", "mlp")),
+        "cv": ini.normal((f, d), ("mlp", "embed")),
+        "cr": ini.normal((d, d), ("embed", "embed2")),
+    }
+
+
+def rwkv6_state(cfg: ModelConfig, batch: int, dtype=F32, device=None,
+                lead: tuple = ()) -> dict:
+    d = cfg.d_model
+    h = d // RWKV_HEAD
+    lead = tuple(lead)
+    return {
+        "s": torch.zeros(lead + (batch, h, RWKV_HEAD, RWKV_HEAD), dtype=dtype,
+                         device=device),
+        "x_t": torch.zeros(lead + (batch, d), dtype=dtype, device=device),
+        "x_c": torch.zeros(lead + (batch, d), dtype=dtype, device=device),
+    }
+
+
+def _shift(x, x_last):
+    """Token shift: (B,T,D), (B,D) -> previous-token tensor (B,T,D)."""
+    return torch.cat([x_last[:, None, :], x[:, :-1]], dim=1)
+
+
+def _rwkv_time_mix(p, xn, xs, cfg):
+    d = cfg.d_model
+    h = d // RWKV_HEAD
+    mu = p["mu"].to(F32)
+    xr, xk, xv, xw, xg = (xn + mu[i] * (xs - xn) for i in range(5))
+    shp = xn.shape[:-1]
+    r = (xr @ p["wr"].to(F32)).reshape(*shp, h, RWKV_HEAD)
+    k = (xk @ p["wk"].to(F32)).reshape(*shp, h, RWKV_HEAD)
+    v = (xv @ p["wv"].to(F32)).reshape(*shp, h, RWKV_HEAD)
+    g = xg @ p["wg"].to(F32)
+    lw = -torch.exp(p["w0"].to(F32)
+                    + torch.tanh(xw @ p["wa"].to(F32)) @ p["wb"].to(F32))
+    return r, k, v, g, lw.reshape(*shp, h, RWKV_HEAD)
+
+
+def _rwkv_out(p, wkv, g, cfg, dtype):
+    """Per-head groupnorm -> silu(g) gate -> output proj."""
+    b_shape = wkv.shape[:-2]
+    mu = wkv.mean(-1, keepdim=True)
+    var = wkv.var(-1, keepdim=True, correction=0)   # jnp.var: ddof 0
+    o = ((wkv - mu) * torch.rsqrt(var + 1e-5)).reshape(*b_shape, cfg.d_model)
+    o = o * p["gn_w"].to(F32) + p["gn_b"].to(F32)
+    o = o * F.silu(g)
+    return (o @ p["wo"].to(F32)).to(dtype)
+
+
+def _rwkv_channel_mix(p, xn, xs):
+    mu = p["mu_c"].to(F32)
+    xk = xn + mu[0] * (xs - xn)
+    xr = xn + mu[1] * (xs - xn)
+    kk = torch.relu(xk @ p["ck"].to(F32)).square()
+    return torch.sigmoid(xr @ p["cr"].to(F32)) * (kk @ p["cv"].to(F32))
+
+
+def _rwkv_block(p, x, cfg, chunk):
+    """The chunked block and its decode state."""
+    b, t, d = x.shape
+    h = d // RWKV_HEAD
+    dtype = x.dtype
+    zero = torch.zeros((b, d), dtype=F32, device=x.device)
+    xn = layer_norm(x, p["ln1_w"], p["ln1_b"]).to(F32)
+    r, k, v, g, lw = _rwkv_time_mix(p, xn, _shift(xn, zero), cfg)
+    s0 = torch.zeros((b, h, RWKV_HEAD, RWKV_HEAD), dtype=F32, device=x.device)
+    wkv, s_fin = gla_chunked(r, k, v, lw, p["u"].to(F32), s0, min(chunk, t))
+    x = x + _rwkv_out(p, wkv, g, cfg, dtype)
+    xn2 = layer_norm(x, p["ln2_w"], p["ln2_b"]).to(F32)
+    x = x + _rwkv_channel_mix(p, xn2, _shift(xn2, zero)).to(dtype)
+    return x, {"s": s_fin, "x_t": xn[:, -1], "x_c": xn2[:, -1]}
+
+
+def rwkv6_block(p, x, cfg: ModelConfig, chunk: int = 32):
+    """Prefill form. x: (B, T, D). Returns x'."""
+    return _rwkv_block(p, x, cfg, chunk)[0]
+
+
+def rwkv6_block_step(p, x, state, cfg: ModelConfig):
+    """Decode step. x: (B, D). state: rwkv6_state. Returns (x', state')."""
+    dtype = x.dtype
+    xn = layer_norm(x[:, None], p["ln1_w"], p["ln1_b"])[:, 0].to(F32)
+    r, k, v, g, lw = _rwkv_time_mix(p, xn, state["x_t"], cfg)
+    wkv, s = gla_step(r, k, v, lw, p["u"].to(F32), state["s"])
+    x = x + _rwkv_out(p, wkv, g, cfg, dtype)
+    xn2 = layer_norm(x[:, None], p["ln2_w"], p["ln2_b"])[:, 0].to(F32)
+    x = x + _rwkv_channel_mix(p, xn2, state["x_c"]).to(dtype)
+    return x, {"s": s, "x_t": xn, "x_c": xn2}
+
+
+# =====================================================================
+# Mamba2 block (zamba2 backbone)
+# =====================================================================
+
+MAMBA_HEAD = 64  # P (head dim)
+CONV_K = 4
+
+
+def _mamba_dims(cfg: ModelConfig):
+    d = cfg.d_model
+    d_in = 2 * d
+    nh = d_in // MAMBA_HEAD
+    n = cfg.ssm_state
+    conv_w = d_in + 2 * n  # conv over (x, B, C), single group
+    return d, d_in, nh, n, conv_w
+
+
+def init_mamba2_block(ini: Initializer, cfg: ModelConfig) -> dict:
+    d, d_in, nh, n, conv_w = _mamba_dims(cfg)
+    return {
+        "ln_w": ini.ones((d,), ("norm",)),
+        "in_proj": ini.normal((d, 2 * d_in + 2 * n + nh), ("embed", "mlp")),
+        "conv_w": ini.normal((CONV_K, conv_w), (None, "mlp"), scale=0.5),
+        "conv_b": ini.zeros((conv_w,), ("mlp",)),
+        "a_log": ini.normal((nh,), ("heads",), scale=0.1),  # A = -exp(a_log)
+        "d_skip": ini.ones((nh,), ("heads",)),
+        "dt_bias": ini.zeros((nh,), ("heads",)),
+        "norm_w": ini.ones((d_in,), ("norm",)),
+        "out_proj": ini.normal((d_in, d), ("mlp", "embed")),
+    }
+
+
+def mamba2_state(cfg: ModelConfig, batch: int, dtype=F32, device=None,
+                 lead: tuple = ()) -> dict:
+    d, d_in, nh, n, conv_w = _mamba_dims(cfg)
+    lead = tuple(lead)
+    return {
+        "s": torch.zeros(lead + (batch, nh, n, MAMBA_HEAD), dtype=dtype,
+                         device=device),
+        "conv": torch.zeros(lead + (batch, CONV_K - 1, conv_w), dtype=dtype,
+                            device=device),
+    }
+
+
+def _mamba_split(zxbcdt, cfg):
+    d, d_in, nh, n, conv_w = _mamba_dims(cfg)
+    z = zxbcdt[..., :d_in]
+    xbc = zxbcdt[..., d_in:d_in + conv_w]
+    dt = zxbcdt[..., d_in + conv_w:]
+    return z, xbc, dt
+
+
+def _mamba_ssm(p, xbc, dt, cfg):
+    """Post-conv split + SSD inputs. xbc: (..., conv_w) float32."""
+    d, d_in, nh, n, conv_w = _mamba_dims(cfg)
+    xbc = F.silu(xbc)
+    x = xbc[..., :d_in]
+    B = xbc[..., d_in:d_in + n]
+    C = xbc[..., d_in + n:]
+    dt = F.softplus(dt + p["dt_bias"].to(F32))                 # (..., nh)
+    a = -torch.exp(p["a_log"].to(F32))
+    a_log_t = dt * a                                            # log decay <= 0
+    shp = x.shape[:-1]
+    xh = x.reshape(*shp, nh, MAMBA_HEAD) * dt[..., None]        # dt-scaled input
+    Bh = B[..., None, :].expand(*shp, nh, n)
+    Ch = C[..., None, :].expand(*shp, nh, n)
+    return xh, a_log_t, Bh, Ch, x
+
+
+def _gated_rmsnorm(y, z, w):
+    y = y * F.silu(z)
+    return y * torch.rsqrt(y.square().mean(-1, keepdim=True) + 1e-6) \
+        * w.to(F32)
+
+
+def _mamba_block(p, x, cfg, chunk):
+    """The chunked block and its decode state."""
+    b, t, _ = x.shape
+    d, d_in, nh, n, conv_w = _mamba_dims(cfg)
+    dtype = x.dtype
+    xn = rms_norm(x, p["ln_w"]).to(F32)
+    z, xbc_pre, dt = _mamba_split(xn @ p["in_proj"].to(F32), cfg)
+    # causal depthwise conv, kernel CONV_K, summed in the reference's order
+    pad = torch.zeros((b, CONV_K - 1, conv_w), dtype=F32, device=x.device)
+    xpad = torch.cat([pad, xbc_pre], dim=1)
+    wconv = p["conv_w"].to(F32)
+    xbc = sum(xpad[:, i:i + t] * wconv[i] for i in range(CONV_K)) \
+        + p["conv_b"].to(F32)
+    xh, a_log_t, Bh, Ch, _ = _mamba_ssm(p, xbc, dt, cfg)
+    s0 = torch.zeros((b, nh, n, MAMBA_HEAD), dtype=F32, device=x.device)
+    y, s_fin = ssd_chunked(xh, a_log_t, Bh, Ch, s0, chunk=min(chunk, t))
+    y = y + p["d_skip"].to(F32)[:, None] * xh
+    y = _gated_rmsnorm(y.reshape(b, t, d_in), z, p["norm_w"])
+    x = x + (y @ p["out_proj"].to(F32)).to(dtype)
+    # the conv state: the last CONV_K - 1 pre-conv inputs
+    return x, {"s": s_fin, "conv": xpad[:, -(CONV_K - 1):]}
+
+
+def mamba2_block(p, x, cfg: ModelConfig, chunk: int = 128):
+    """Prefill form. x: (B, T, D)."""
+    return _mamba_block(p, x, cfg, chunk)[0]
+
+
+def mamba2_block_step(p, x, state, cfg: ModelConfig):
+    """Decode step. x: (B, D). Returns (x', state')."""
+    b = x.shape[0]
+    d, d_in, nh, n, conv_w = _mamba_dims(cfg)
+    dtype = x.dtype
+    xn = rms_norm(x[:, None], p["ln_w"])[:, 0].to(F32)
+    z, xbc, dt = _mamba_split(xn @ p["in_proj"].to(F32), cfg)
+    window = torch.cat([state["conv"], xbc[:, None]], dim=1)  # (B,K,W)
+    xbc = torch.einsum("bkw,kw->bw", window, p["conv_w"].to(F32)) \
+        + p["conv_b"].to(F32)
+    xh, a_log_t, Bh, Ch, _ = _mamba_ssm(p, xbc, dt, cfg)
+    y, s = ssd_step(xh, a_log_t, Bh, Ch, state["s"])
+    y = y + p["d_skip"].to(F32)[:, None] * xh
+    y = _gated_rmsnorm(y.reshape(b, d_in), z, p["norm_w"])
+    x = x + (y @ p["out_proj"].to(F32)).to(dtype)
+    return x, {"s": s, "conv": window[:, 1:]}

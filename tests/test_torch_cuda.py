@@ -1309,3 +1309,95 @@ def test_trace_checks_pass_on_card(cuda_device):
     assert report["device"].startswith("cuda")
     assert {"bitserial_gemm", "bitserial_fused", "bgemm"} <= set(
         report["launches"])
+
+
+# ------------------------------------------------------------- LM serving
+
+def _lm_case(arch):
+    """A float32 smoke config of ``arch`` (MoE dropless), its parameters
+    drawn on the CPU, and a batch of 2 x 17 tokens with its stub inputs."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.train import data
+
+    cfg = dataclasses.replace(configs.smoke_config(configs.get(arch)),
+                              dtype="float32")
+    if cfg.moe_experts:
+        cfg = dataclasses.replace(
+            cfg, capacity_factor=float(cfg.moe_experts) / cfg.moe_top_k)
+    params, _ = lm.init_lm(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    batch = data.batch_for_arch(cfg, 0, 0, 2, 17, device="cpu")
+    batch = {k: v.float() if v.is_floating_point() else v
+             for k, v in batch.items()}
+    return cfg, params, batch
+
+
+def _to(tree, device):
+    return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def _lm_rel(got, ref) -> float:
+    got, ref = got.float().cpu(), ref.float().cpu()
+    return float((got - ref).abs().max() / ref.abs().max().clamp(min=1e-12))
+
+
+@pytest.fixture
+def no_tf32():
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = old
+
+
+@pytest.mark.parametrize("arch", ["codeqwen1.5-7b", "olmoe-1b-7b",
+                                  "internvl2-2b", "rwkv6-1.6b", "zamba2-7b",
+                                  "whisper-large-v3", "h2o-danube-3-4b"])
+def test_lm_on_card_matches_cpu(cuda_device, no_tf32, arch):
+    """Each family (and SWA): prefill and 4 teacher-forced decode steps on
+    the card against the port on the CPU, within 1e-4 relative."""
+    from repro_torch.models import lm
+
+    cfg, params, batch = _lm_case(arch)
+    prompt = {k: v for k, v in batch.items() if k != "labels"}
+    prompt["tokens"] = batch["tokens"][:, :13]
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        p, b = _to(params, dev), _to(prompt, dev)
+        logits, cache = lm.prefill(p, b, cfg, max_seq=24)
+        got = [logits]
+        for i in range(4):
+            tok = batch["tokens"][:, 13 + i:14 + i].to(dev)
+            logits, cache = lm.decode_step(p, cache, tok, cfg)
+            got.append(logits)
+        outs[str(dev)] = got
+    for a, b in zip(outs["cpu"], outs[str(cuda_device)]):
+        assert b.device.type == "cuda"
+        assert _lm_rel(b, a) <= 1e-4
+
+
+@pytest.mark.parametrize("arch", ["codeqwen1.5-7b", "moonshot-v1-16b-a3b",
+                                  "rwkv6-1.6b", "zamba2-7b",
+                                  "whisper-large-v3", "internvl2-2b"])
+def test_lm_decode_matches_forward_on_card(cuda_device, no_tf32, arch):
+    from repro_torch.models import lm
+
+    cfg, params, batch = _lm_case(arch)
+    p, b = _to(params, cuda_device), _to(batch, cuda_device)
+    h = lm.forward_hidden(p, b, cfg)
+    want = h[:, -1] @ lm._head_matrix(p, cfg)
+    _, cache = lm.prefill(p, dict(b, tokens=b["tokens"][:, :-1]), cfg,
+                          max_seq=24)
+    got, _ = lm.decode_step(p, cache, b["tokens"][:, -1:], cfg)
+    assert _lm_rel(got, want) <= 1e-4
+
+
+def test_lm_launcher_on_card(cuda_device):
+    from repro_torch.launch import serve
+
+    result = serve.main(["--arch", "rwkv6-1.6b", "--smoke", "--requests", "4",
+                         "--batch-slots", "2", "--max-new", "4",
+                         "--wq-bits", "4"])
+    assert result["requests"] == 4 and result["device"] != "cpu"
+    assert all(s["tokens_generated"] == 8 for s in result["stats"])
