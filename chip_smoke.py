@@ -188,6 +188,30 @@ without printing a result:
      ops a step), and the greedy agreement of bf16 and 4-bit. (d) The
      --arch launcher (rwkv6-1.6b --smoke) and the quantized-LM example.
 
+  18. LM training — gradients through lm_loss by autograd, the train step
+     (launch/steps.make_train_step) and the launchers. (a) Every arch's
+     float32 smoke config (MoE dropless), TF32 off: the loss and every
+     leaf's gradient on the card against the port on the CPU, within 1e-4
+     of the leaf's largest value; remat none, dots and full on the card
+     within 1e-6 of each other, bit for bit on the dense archs. (b) Every
+     arch at full width in bf16 with remat full and its depth cut as in
+     17 (codeqwen1.5-7b to 2 layers too): two train steps at n_micro 1 and
+     2 (batch 2 x 256), loss, parameters and moments finite, peak memory.
+     (c) h2o-danube-3-4b at full width and depth (3.96 B parameters),
+     sequence 4096 (train_4k's), batch 2 (cut from 256), remat full,
+     AdamW lr 1e-4 with clipping at 1.0: 10 steps, each ended by a read of
+     the loss (ms a step p50/p95, tokens/s, peak memory, 6 * N * tokens
+     over the step as a share of the 989 TFLOP/s dense bf16 peak of the
+     datasheet); 3 steps under torch.profiler (device ms, idle share,
+     ops a step); one step with the stacked leaves indexed per layer
+     against one unbind; the remat modes at 4 layers (ms, peak). (d) The
+     launchers: launch/train on rwkv6-1.6b --smoke, failing at step 6
+     (exit 17) and rerun to resume from step 4 to step 12, its final
+     parameters against an uninterrupted run's; qgtc-gcn --smoke
+     --int-path for 8 steps, bitserial_gemm launched as often as the int
+     step's GEMMs (these launches join the kernels line); and
+     examples/train_lm_100m at ~100M parameters for 100 steps.
+
 Phases 1-14 run with tuning off (tune.use_table(None)), so that they hold
 what they held before a table was packaged: the tuned path is measured in
 phase 15 alone. Phases 3, 4, 13, 14 and 15 run with the registry's
@@ -3137,6 +3161,358 @@ def phase_lm_serving(torch, card):
     return launches
 
 
+# LM training (phase 18): depth cuts of the full-width runs (codeqwen's 32
+# layers would hold 65.5 GB of bf16 params, gradients and moments: 2 here),
+# the timed cell (train_4k's sequence, batch cut from 256 to 2) and the
+# launchers' command lines
+LM_TRAIN_DEPTH = dict(LM_DEPTH, **{"codeqwen1.5-7b": dict(n_layers=2)})
+LM_TRAIN_BATCH, LM_TRAIN_SEQ = 2, 256
+LM_TRAIN_CELL = dict(arch="h2o-danube-3-4b", batch=2, seq=4096, steps=10,
+                     profiled=3, remat_layers=4)
+LM_TRAIN_OPT = dict(lr=1e-4, grad_clip=1.0)
+LM_TRAIN_CLI = ["--arch", "rwkv6-1.6b", "--smoke", "--steps", "12", "--batch",
+                "2", "--seq", "32", "--ckpt-every", "4", "--log-every", "2"]
+LM_TRAIN_FAIL_AT = 6
+GNN_TRAIN_CLI = ["--arch", "qgtc-gcn", "--smoke", "--int-path", "--steps",
+                 "8", "--log-every", "1"]
+GNN_TRAIN_BLOCKS = 4   # --smoke: 8 parts, batches of 4
+LM_100M_CLI = ["--steps", "100"]
+PEAK_BF16_S = 989e12   # H100 SXM dense bf16, NVIDIA's datasheet
+
+
+def _lm_flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_lm_flat(v, prefix + k + "."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def _lm_train_card_vs_cpu(torch, card):
+    """(a) every arch's float32 smoke config: loss and gradients on the card
+    against the port on the CPU, and the three remat modes on the card."""
+    from repro_torch import configs
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.train import data
+
+    worst = 0.0
+    for arch in configs.ARCHS:
+        cfg = dataclasses.replace(configs.smoke_config(configs.get(arch)),
+                                  dtype="float32")
+        if cfg.moe_experts:  # dropless, as the CPU tests
+            cfg = dataclasses.replace(
+                cfg, capacity_factor=float(cfg.moe_experts) / cfg.moe_top_k)
+        params, _ = lm.init_lm(cfg, torch.Generator().manual_seed(0),
+                               device="cpu")
+        batch = data.batch_for_arch(cfg, 0, 0, 2, 17, device="cpu")
+        batch = {k: v.float() if v.is_floating_point() else v
+                 for k, v in batch.items()}
+        loss_c, _, g_c = steps.loss_and_grads(params, batch, cfg, t_chunk=8)
+        p_d, b_d = _lm_to(params, DEVICE), _lm_to(batch, DEVICE)
+        out = {r: steps.loss_and_grads(p_d, b_d, dataclasses.replace(
+            cfg, remat=r), t_chunk=8) for r in ("none", "dots", "full")}
+        g_c, g_d = _lm_flat(g_c), _lm_flat(out["none"][2])
+        loss_err = abs(out["none"][0].item() - loss_c.item()) / abs(loss_c.item())
+        grad_err = max(_lm_rel(g_d[k], g) for k, g in g_c.items())
+        remat_err, remat_equal = 0.0, True
+        for r in ("dots", "full"):
+            for k, g in _lm_flat(out[r][2]).items():
+                remat_err = max(remat_err, _lm_rel(g, g_d[k]))
+                remat_equal &= bool(torch.equal(g, g_d[k]))
+        if (loss_err > 1e-4 or grad_err > 1e-4 or remat_err > 1e-6
+                or (cfg.family == "dense" and not remat_equal)
+                or g_d["embed"].device.type != DEVICE):
+            raise AssertionError(f"{arch}: card against CPU: loss {loss_err}, "
+                                 f"grads {grad_err}, remat {remat_err} "
+                                 f"(bit-equal {remat_equal})")
+        worst = max(worst, grad_err)
+        emit(phase="lm_train_card_vs_cpu", arch=arch, family=cfg.family,
+             loss_rel_err=loss_err, grad_max_rel_err=grad_err,
+             remat_max_rel_err=remat_err, remat_bit_equal=remat_equal,
+             card=card)
+    return worst
+
+
+def _lm_finite(torch, tree) -> bool:
+    return all(bool(torch.isfinite(x).all()) for x in _lm_flat(tree).values())
+
+
+def _lm_train_full_width(torch, card):
+    """(b) every arch at full width, bf16, remat full, depth cut: two train
+    steps at n_micro 1 and 2; loss, parameters and moments finite."""
+    from repro_torch import configs
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.train import data
+    from repro_torch.train import optimizer as opt
+
+    for arch in configs.ARCHS:
+        cfg = dataclasses.replace(configs.get(arch), remat="full",
+                                  **LM_TRAIN_DEPTH.get(arch, dict(n_layers=2)))
+        row = {"arch": arch, "n_layers": cfg.n_layers,
+               "enc_layers": cfg.enc_layers, "batch": LM_TRAIN_BATCH,
+               "seq": LM_TRAIN_SEQ}
+        for n_micro in (1, 2):
+            params, _ = lm.init_lm(
+                cfg, torch.Generator(device=DEVICE).manual_seed(0),
+                device=DEVICE)
+            row["params"] = lm.param_count(params)
+            ostate = opt.adamw_init(params)
+            step = steps.make_train_step(cfg, opt.AdamWConfig(**LM_TRAIN_OPT),
+                                         n_micro=n_micro)
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            losses = []
+            for i in range(2):
+                b = data.batch_for_arch(cfg, 0, i, LM_TRAIN_BATCH,
+                                        LM_TRAIN_SEQ, device=DEVICE)
+                params, ostate, m = step(params, ostate, b)
+                losses.append(m["loss"].item())
+            row[f"n_micro{n_micro}"] = dict(
+                losses=losses, seconds=time.perf_counter() - t0,
+                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+            if not (all(math.isfinite(x) for x in losses)
+                    and _lm_finite(torch, params)
+                    and _lm_finite(torch, ostate["mu"])
+                    and _lm_finite(torch, ostate["nu"])):
+                raise AssertionError(f"{arch} n_micro {n_micro}: not finite "
+                                     f"{losses}")
+            del params, ostate, step
+            gc.collect()
+            torch.cuda.empty_cache()
+        emit(phase="lm_train_full_width", **row, card=card)
+
+
+def _lm_train_profile(torch, step, params, ostate, batches):
+    """LM_TRAIN_CELL["profiled"] steps under torch.profiler (the device's
+    activity): device ms, idle share and device ops a step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    n = len(batches)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches:
+            params, ostate, m = step(params, ostate, b)
+            m["loss"].item()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        return params, ostate, {"profile": "not measured",
+                                "host_wall_ms": wall_ms}
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    return params, ostate, {
+        "host_wall_ms": wall_ms, "device_ms": device_ms,
+        "device_idle_share": 1 - device_ms / wall_ms,
+        "device_ops_per_step": sum(e.count for e in kernels) / n,
+        "top_device_ms": [[e.key[:60], e.self_device_time_total / 1e3 / n]
+                          for e in top]}
+
+
+def _lm_train_timed(torch, cfg, params, ostate, batches):
+    """One train step a batch, each ended by a read of the loss; returns
+    (params, ostate, walls in s, losses)."""
+    from repro_torch.launch import steps
+    from repro_torch.train import optimizer as opt
+
+    step = steps.make_train_step(cfg, opt.AdamWConfig(**LM_TRAIN_OPT))
+    walls, losses = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, ostate, m = step(params, ostate, b)
+        losses.append(m["loss"].item())
+        walls.append(time.perf_counter() - t0)
+    return params, ostate, walls, losses
+
+
+def _lm_train_cell(torch, card):
+    """(c) h2o-danube-3-4b at full width and depth: LM_TRAIN_CELL's steps,
+    a profile, stack[i] against unbind, and the remat modes at 4 layers."""
+    from repro_torch import configs
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.perf import report
+    from repro_torch.train import data
+    from repro_torch.train import optimizer as opt
+
+    c = LM_TRAIN_CELL
+    cfg = dataclasses.replace(configs.get(c["arch"]), remat="full")
+    gc.collect()
+    torch.cuda.empty_cache()
+    params, _ = lm.init_lm(cfg, torch.Generator(device=DEVICE).manual_seed(0),
+                           device=DEVICE)
+    n_params = lm.param_count(params)
+    ostate = opt.adamw_init(params)
+    batches = [data.batch_for_arch(cfg, 0, i, c["batch"], c["seq"],
+                                   device=DEVICE)
+               for i in range(1 + c["steps"] + c["profiled"] + 3)]
+    tokens = c["batch"] * c["seq"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params, ostate, _, first = _lm_train_timed(torch, cfg, params, ostate,
+                                               batches[:1])  # warm
+    params, ostate, walls, losses = _lm_train_timed(
+        torch, cfg, params, ostate, batches[1:1 + c["steps"]])
+    peak = torch.cuda.max_memory_allocated()
+    p50 = report.percentile(walls, 50)
+    flops = 6 * n_params * tokens
+    row = dict(phase="lm_train_cell", arch=cfg.name, params=n_params,
+               n_layers=cfg.n_layers, batch=c["batch"], seq=c["seq"],
+               remat=cfg.remat, steps=c["steps"], loss_first=first[0],
+               losses=losses, ms_per_step_p50=p50 * 1e3,
+               ms_per_step_p95=report.percentile(walls, 95) * 1e3,
+               ms_per_step=[w * 1e3 for w in walls], tokens_per_s=tokens / p50,
+               peak_memory_gb=peak / 1e9, model_flops_per_step=flops,
+               model_flops_note="6 * N * tokens, N every parameter",
+               model_flops_share_of_989_tflops=flops / p50 / PEAK_BF16_S)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{cfg.name}: non-finite losses {losses}")
+    k = 1 + c["steps"]
+    step = steps.make_train_step(cfg, opt.AdamWConfig(**LM_TRAIN_OPT))
+    params, ostate, prof = _lm_train_profile(torch, step, params, ostate,
+                                             batches[k:k + c["profiled"]])
+    row.update(prof)
+    emit(**row, card=card)
+
+    # stack[i] per layer (the backward writes each layer's gradient into a
+    # zero tensor the size of the stack) against one unbind a forward
+    k += c["profiled"]
+    split = {}
+    unbind = lm._unbind
+    try:
+        for name, fn in (("unbind", unbind),
+                         ("stack_index", lambda tree, n: [lm._index(tree, i)
+                                                          for i in range(n)]),
+                         ("unbind_again", unbind)):
+            lm._unbind = fn
+            torch.cuda.reset_peak_memory_stats()
+            params, ostate, w, _ = _lm_train_timed(torch, cfg, params, ostate,
+                                                   batches[k:k + 1])
+            k += 1
+            split[name] = dict(ms=w[0] * 1e3, peak_memory_gb=torch.cuda
+                               .max_memory_allocated() / 1e9)
+    finally:
+        lm._unbind = unbind
+    emit(phase="lm_train_stack_vs_unbind", arch=cfg.name, **split, card=card)
+    del params, ostate, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    remat = {}
+    for mode in ("none", "dots", "full"):
+        cfg4 = dataclasses.replace(cfg, n_layers=c["remat_layers"], remat=mode)
+        params, _ = lm.init_lm(cfg4, torch.Generator(device=DEVICE)
+                               .manual_seed(0), device=DEVICE)
+        ostate = opt.adamw_init(params)
+        params, ostate, _, _ = _lm_train_timed(torch, cfg4, params, ostate,
+                                               batches[:1])  # warm
+        torch.cuda.reset_peak_memory_stats()
+        params, ostate, w, _ = _lm_train_timed(torch, cfg4, params, ostate,
+                                               batches[1:3])
+        remat[mode] = dict(ms_per_step=[x * 1e3 for x in w],
+                           peak_memory_gb=torch.cuda.max_memory_allocated()
+                           / 1e9)
+        del params, ostate
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit(phase="lm_train_remat", arch=cfg.name, n_layers=c["remat_layers"],
+         batch=c["batch"], seq=c["seq"], **remat, card=card)
+
+
+def _lm_train_launchers(torch, card):
+    """(d) the --arch launcher's failure and resume, the GNN launcher's int
+    path through bitserial_gemm, and the 100M example. Returns the kernel
+    launches of the GNN launcher's run."""
+    import tempfile
+
+    from repro_torch.dist import checkpoint as ckpt
+    from repro_torch.examples import train_lm_100m
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train
+    from repro_torch.tune import use_table
+
+    def final(d):
+        m = json.loads((Path(d) / f"step_{ckpt.latest_step(d):010d}" /
+                        "manifest.json").read_text())
+        return ckpt.restore(d, [None] * m["n_leaves"])[0]
+
+    out = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(out):
+        full, cut = f"{tmp}/full", f"{tmp}/cut"
+        res = train.main(LM_TRAIN_CLI + ["--ckpt-dir", full])
+        try:
+            train.main(LM_TRAIN_CLI + ["--ckpt-dir", cut, "--simulate-failure-at",
+                                       str(LM_TRAIN_FAIL_AT)])
+            code = 0
+        except SystemExit as exc:
+            code = exc.code
+        train.main(LM_TRAIN_CLI + ["--ckpt-dir", cut])
+        latest = ckpt.latest_step(cut)
+        diff = max(float((a.float() - b.float()).abs().max())
+                   for a, b in zip(final(full), final(cut)))
+    text = out.getvalue()
+    if (code != 17 or "resumed from step 4" not in text or latest != 12
+            or not res["device"].startswith(DEVICE)):
+        raise AssertionError(f"LM launcher: exit {code}, latest {latest}: "
+                             f"{text[-2000:]}")
+    emit(phase="lm_train_launcher", argv=LM_TRAIN_CLI, exit_code=code,
+         resumed_from=4, latest_step=latest,
+         max_abs_diff_vs_uninterrupted=diff, history=res["history"], card=card)
+
+    out = io.StringIO()
+    with use_table(None), no_fallback(), contextlib.redirect_stdout(out):
+        _build.reset_launches()
+        res = train.main(GNN_TRAIN_CLI)
+        launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    steps_ = int(GNN_TRAIN_CLI[GNN_TRAIN_CLI.index("--steps") + 1])
+    per_step = int_launches_per_step(3, GNN_TRAIN_BLOCKS, 0)
+    if launches.get("bitserial_gemm") != steps_ * per_step:
+        raise AssertionError(f"GNN launcher launched {launches}, expected "
+                             f"{per_step} bitserial_gemm a step")
+    emit(phase="gnn_train_launcher", argv=GNN_TRAIN_CLI, launches=launches,
+         bitserial_gemm_per_step=launches["bitserial_gemm"] / steps_,
+         expected_per_step=per_step, test_acc=res["test_acc"],
+         history=res["history"], card=card)
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res = train_lm_100m.main(LM_100M_CLI)
+    if not out.getvalue().rstrip().endswith("OK"):
+        raise AssertionError(f"train_lm_100m: {out.getvalue()[-2000:]}")
+    emit(phase="lm_train_100m", argv=LM_100M_CLI, params=res["params"],
+         loss_step0=res["losses"][0], loss_last=res["losses"][-1],
+         steps=len(res["losses"]), ms_per_step_p50=res["p50_s"] * 1e3,
+         seconds=res["seconds"], card=card)
+    return launches
+
+
+def phase_lm_training(torch, card):
+    """Phase 18: LM training on the card. Returns the kernel launches of its
+    runs (the GNN launcher's int path)."""
+    from repro_torch.kernels import _build
+
+    t_phase = time.perf_counter()
+    worst = _lm_train_card_vs_cpu(torch, card)
+    _lm_train_full_width(torch, card)
+    _lm_train_cell(torch, card)
+    _build.reset_launches()
+    launches = _lm_train_launchers(torch, card)
+    emit(phase="lm_train_done", card_vs_cpu_grad_max_rel_err=worst,
+         kernel_launches=launches, seconds=time.perf_counter() - t_phase,
+         card=card)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3218,6 +3594,8 @@ def main() -> int:
     for name, n in phase_analysis(torch, card).items():
         launches[name] += n
     for name, n in phase_lm_serving(torch, card).items():
+        launches[name] += n
+    for name, n in phase_lm_training(torch, card).items():
         launches[name] += n
 
     kernels = []

@@ -3,10 +3,13 @@
 CUDA launches are asynchronous: ``time.perf_counter() - t0`` after an
 unsynchronised launch times the enqueue, not the work, and a benchmark
 reports numbers off by orders of magnitude. The serving engine's batch
-walls feed straggler eviction and retry-after hints, so an enqueue-time
-sample there evicts the wrong replica. Every timing scope in
-``repro_torch/benchmarks/``, ``serve/``, ``perf/``, ``tune/sweep.py`` and
-``train/trainer.py`` must therefore hold a sync between start and stop:
+walls feed straggler eviction and retry-after hints, and the training
+launcher's and the 100M example's step walls feed the straggler watchdog,
+so an enqueue-time sample there flags the wrong step or replica. Every
+timing scope in ``repro_torch/benchmarks/``, ``serve/``, ``perf/``,
+``tune/sweep.py``, ``train/trainer.py``, ``launch/train.py`` and
+``examples/train_lm_100m.py`` must therefore hold a sync between start and
+stop:
 
   * ``torch.cuda.synchronize`` or an event's ``synchronize`` /
     ``elapsed_time``,
@@ -29,7 +32,8 @@ import re
 from repro_torch.analysis.engine import Rule, callee_name
 
 _SCOPE = re.compile(r"(^|/)repro_torch/((benchmarks|serve|perf)/[^/]*|"
-                    r"tune/sweep|train/trainer)\.py$")
+                    r"tune/sweep|train/trainer|launch/train|"
+                    r"examples/train_lm_100m)\.py$")
 
 SYNC_NAMES = {"synchronize", "elapsed_time", "_wait", "cpu", "item", "numpy",
               "drain", "step", "infer_batch"}
@@ -60,9 +64,10 @@ def _walk_scope(body):
 
 class TimerSync(Rule):
     name = "bench-timer-sync"
-    description = ("in repro_torch/{benchmarks,serve,perf}/, tune/sweep.py "
-                   "and train/trainer.py, a perf_counter()/time.time() stop "
-                   "must share its scope with a device sync (synchronize, "
+    description = ("in repro_torch/{benchmarks,serve,perf}/, tune/sweep.py, "
+                   "train/trainer.py, launch/train.py and "
+                   "examples/train_lm_100m.py, a perf_counter()/time.time() "
+                   "stop must share its scope with a device sync (synchronize, "
                    "elapsed_time, _wait, .cpu/.item/.numpy, or an engine "
                    "drain/step/infer_batch)")
 

@@ -19,13 +19,35 @@ per-layer leaf stacked along a leading layer axis under ``layers`` (and
 ``enc_layers``), with the same key paths, shapes and dtypes, so that
 ``api.nn.quantize_lm_params`` picks the same leaves (it takes 2-D leaves
 only). Where the reference scans over the layer axis, the port loops over
-the layer index in Python. ``cfg.remat`` has no effect here: nothing is
-differentiated on this path.
+the layer index in Python.
+
+Training differentiates ``lm_loss`` with autograd. The forward splits each
+stacked leaf into its layers once, with ``unbind``, whose backward is one
+``stack``: indexing the stack per layer would give each layer a backward
+that allocates a zero tensor the size of the whole stack, O(L^2) bytes.
+``cfg.remat`` is the reference's rematerialisation (``_remat``), applied
+where the reference applies it, when grad is on:
+
+  none   autograd keeps every layer's saved tensors;
+  dots   each layer body under ``torch.utils.checkpoint`` with a selective
+         policy that saves the outputs of ``aten.mm`` (the weight products,
+         no batch dims: JAX's ``dots_with_no_batch_dims_saveable``) and
+         recomputes the rest, attention's and the experts' ``bmm`` too;
+  full   each layer body under ``torch.utils.checkpoint``: only its inputs
+         are kept, the body runs again in backward.
+
+Remat changes no value: the recomputation runs the same ops on the same
+inputs. The dense, moe, vlm and rwkv6 layers, whisper's encoder and decoder
+layers and every mamba2 layer of the hybrid are remat'd; the hybrid's
+shared attention block is not, as in the reference. Each chunk of the
+cross-entropy is checkpointed whatever ``cfg.remat`` says, so no
+(B, t_chunk, V) float32 logits are kept for backward.
 
 Entry points:
 
-  forward_hidden  scoring forward -> hidden states at text positions
-  lm_loss         forward + chunked cross-entropy (its value)
+  forward_hidden  scoring / training forward -> hidden states at text
+                  positions
+  lm_loss         forward + chunked cross-entropy; differentiable
   prefill         prompt ingestion -> (last-token logits, decode cache)
   decode_step     one token for every sequence in the batch: O(1) state for
                   ssm/hybrid layers, a ring buffer for SWA layers.
@@ -38,9 +60,12 @@ device.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -88,6 +113,21 @@ def _index(tree, i):
     """Layer ``i`` of a stacked tree: views, so that writes reach the stack."""
     return {k: _index(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
+
+
+def _unbind(tree, n: int) -> list[dict]:
+    """The ``n`` layers of a stacked tree, split once with ``unbind``.
+
+    The backward of ``unbind`` is one ``stack`` of the layers' gradients,
+    where ``tree[i]`` per layer (``_index``) gives every layer a backward
+    that writes its gradient into a zero tensor the size of the stack.
+    """
+    per: list[dict] = [{} for _ in range(n)]
+    for k, v in tree.items():
+        parts = _unbind(v, n) if isinstance(v, dict) else v.unbind(0)
+        for i, part in enumerate(parts):
+            per[i][k] = part
+    return per
 
 
 def _store(stack: dict, i: int, new: dict) -> None:
@@ -154,6 +194,30 @@ def _tf_block(p, h, cfg: ModelConfig, *, positions=None, cache=None,
     f_in = _norm(h, p, "ln2")
     f = T.moe(p["moe"], f_in, cfg) if "moe" in p else T.mlp(p["mlp"], f_in, cfg)
     return h + f
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``remat="dots"``: keep the products with no batch dims (``x @ W``
+    reaches here as ``aten.mm``, a batched einsum as ``aten.bmm``)."""
+    if op == torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_saveable():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+def _remat(fn, cfg: ModelConfig):
+    """``fn`` under the rematerialisation ``cfg.remat`` names, as the
+    reference's ``_remat`` (any value but none and dots means full). With
+    grad off nothing is saved, so ``fn`` runs as it is."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    if cfg.remat == "dots":
+        return functools.partial(checkpoint, fn, use_reentrant=False,
+                                 context_fn=_dots_saveable)
+    return functools.partial(checkpoint, fn, use_reentrant=False)
 
 
 # ---------------------------------------------------------------------- init
@@ -230,8 +294,9 @@ def _encode_frames(params, frames, cfg):
     """Whisper encoder over stub frame embeddings (B, F, D)."""
     dt = _dtype(cfg)
     h = frames.to(dt) @ params["frame_proj"].to(dt)
-    for l in range(cfg.enc_layers):
-        h = _tf_block(_index(params["enc_layers"], l), h, cfg, causal=False)
+    block = _remat(_tf_block, cfg)
+    for p_l in _unbind(params["enc_layers"], cfg.enc_layers):
+        h = block(p_l, h, cfg, causal=False)
     return _norm(h, params, "ln_enc")
 
 
@@ -253,7 +318,8 @@ def _hybrid_groups(cfg: ModelConfig):
 
 
 def forward_hidden(params, batch, cfg: ModelConfig, q_chunk: int = 1024):
-    """Scoring forward -> hidden states at *text* positions (B,T,D)."""
+    """Scoring / training forward -> hidden states at *text* positions
+    (B,T,D); each layer under ``cfg.remat`` when grad is on."""
     tokens = batch["tokens"]
     b, t = tokens.shape
     h = _embed_tokens(params, tokens)
@@ -263,26 +329,31 @@ def forward_hidden(params, batch, cfg: ModelConfig, q_chunk: int = 1024):
         h, n_prefix = _with_patches(params, batch, h)
     if fam in ("dense", "moe", "vlm"):
         positions = _positions(b, h.shape[1], h.device)
-        for l in range(cfg.n_layers):
-            h = _tf_block(_index(params["layers"], l), h, cfg,
-                          positions=positions, q_chunk=q_chunk)
+        block = _remat(_tf_block, cfg)
+        for p_l in _unbind(params["layers"], cfg.n_layers):
+            h = block(p_l, h, cfg, positions=positions, q_chunk=q_chunk)
     elif fam == "ssm_rwkv6":
-        for l in range(cfg.n_layers):
-            h = S.rwkv6_block(_index(params["layers"], l), h, cfg)
+        block = _remat(S.rwkv6_block, cfg)
+        for p_l in _unbind(params["layers"], cfg.n_layers):
+            h = block(p_l, h, cfg)
     elif fam == "hybrid_mamba2":
         g, a = _hybrid_groups(cfg)
         positions = _positions(b, t, h.device)
+        layers = _unbind(params["layers"], cfg.n_layers)
+        block = _remat(S.mamba2_block, cfg)
         for gi in range(g):
             for j in range(a):
-                h = S.mamba2_block(_index(params["layers"], gi * a + j), h, cfg)
+                h = block(layers[gi * a + j], h, cfg)
+            # the shared block is not remat'd (reference lm.py:301-318)
             h = _tf_block(params["shared_attn"], h, cfg, positions=positions,
                           q_chunk=q_chunk)
     elif fam == "audio_encdec":
         enc = _encode_frames(params, batch["frames"], cfg)
         positions = _positions(b, t, h.device)
-        for l in range(cfg.n_layers):
-            h = _tf_block(_index(params["layers"], l), h, cfg,
-                          positions=positions, enc=enc, q_chunk=q_chunk)
+        block = _remat(_tf_block, cfg)
+        for p_l in _unbind(params["layers"], cfg.n_layers):
+            h = block(p_l, h, cfg, positions=positions, enc=enc,
+                      q_chunk=q_chunk)
     else:
         raise ValueError(fam)
     h = _norm(h, params, "ln_f")
@@ -295,23 +366,40 @@ def _head_matrix(params, cfg):
     return params["lm_head"]
 
 
+def _ce_chunk(h_i, y_i, head, z_loss: float):
+    """(sum of the chunk's token losses, its count of valid labels)."""
+    logits = (h_i @ head.to(h_i.dtype)).to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, y_i.clamp(min=0)[..., None].long())[..., 0]
+    nll = lse - ll
+    if z_loss:
+        nll = nll + z_loss * lse.square()
+    valid = y_i >= 0
+    return torch.where(valid, nll, 0.0).sum(), valid.sum()
+
+
 def chunked_cross_entropy(h, head, labels, t_chunk: int = 512,
                           z_loss: float = 1e-4):
     """CE over (B,T,D) hidden x (D,V) head, a chunk of T at a time, never
-    holding the whole (B,T,V) logits."""
+    holding the whole (B,T,V) logits.
+
+    With grad on, each chunk runs under ``torch.utils.checkpoint`` (the
+    reference's ``jax.checkpoint`` of its scan body): its (B, t_chunk, V)
+    float32 logits are recomputed in backward, not kept. The reference pads
+    T to a multiple of ``t_chunk`` with labels -1, which add nothing to the
+    sum or the count; the port takes a shorter last chunk instead, the
+    same sum.
+    """
+    chunk = _ce_chunk
+    if torch.is_grad_enabled():
+        chunk = functools.partial(checkpoint, _ce_chunk, use_reentrant=False)
     loss_sum = torch.zeros((), dtype=torch.float32, device=h.device)
     n = torch.zeros((), dtype=torch.int64, device=h.device)
     for i in range(0, h.shape[1], t_chunk):
-        h_i, y_i = h[:, i:i + t_chunk], labels[:, i:i + t_chunk]
-        logits = (h_i @ head.to(h_i.dtype)).to(torch.float32)
-        lse = torch.logsumexp(logits, dim=-1)
-        ll = torch.gather(logits, -1, y_i.clamp(min=0)[..., None].long())[..., 0]
-        nll = lse - ll
-        if z_loss:
-            nll = nll + z_loss * lse.square()
-        valid = y_i >= 0
-        loss_sum = loss_sum + torch.where(valid, nll, 0.0).sum()
-        n = n + valid.sum()
+        s_i, n_i = chunk(h[:, i:i + t_chunk], labels[:, i:i + t_chunk], head,
+                         z_loss)
+        loss_sum = loss_sum + s_i
+        n = n + n_i
     n = n.clamp(min=1)
     return loss_sum / n, n
 

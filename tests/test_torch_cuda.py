@@ -1401,3 +1401,78 @@ def test_lm_launcher_on_card(cuda_device):
                          "--wq-bits", "4"])
     assert result["requests"] == 4 and result["device"] != "cpu"
     assert all(s["tokens_generated"] == 8 for s in result["stats"])
+
+
+# ------------------------------------------------------------ LM training
+
+def _grads_on(cfg, params, batch, device):
+    from repro_torch.launch import steps
+
+    loss, _, grads = steps.loss_and_grads(_to(params, device),
+                                          _to(batch, device), cfg, t_chunk=8)
+    return loss, grads
+
+
+def _flat_leaves(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_leaves(v, prefix + k + "."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+@pytest.mark.parametrize("arch", ["codeqwen1.5-7b", "olmoe-1b-7b",
+                                  "internvl2-2b", "rwkv6-1.6b", "zamba2-7b",
+                                  "whisper-large-v3", "h2o-danube-3-4b"])
+def test_lm_gradients_on_card_match_cpu(cuda_device, no_tf32, arch):
+    """Each family: the loss and every leaf's gradient on the card against
+    the port on the CPU, within 1e-4 of the leaf's largest CPU value."""
+    cfg, params, batch = _lm_case(arch)
+    loss_c, g_c = _grads_on(cfg, params, batch, "cpu")
+    loss_d, g_d = _grads_on(cfg, params, batch, cuda_device)
+    assert abs(loss_d.item() - loss_c.item()) <= 1e-4 * abs(loss_c.item())
+    g_c, g_d = _flat_leaves(g_c), _flat_leaves(g_d)
+    assert set(g_c) == set(g_d)
+    for name, g in g_c.items():
+        assert g_d[name].device.type == "cuda"
+        assert _lm_rel(g_d[name], g) <= 1e-4, name
+
+
+@pytest.mark.parametrize("arch", ["codeqwen1.5-7b", "olmoe-1b-7b",
+                                  "rwkv6-1.6b", "zamba2-7b",
+                                  "whisper-large-v3"])
+def test_lm_remat_modes_agree_on_card(cuda_device, no_tf32, arch):
+    """none, dots and full on the card: within 1e-6 of each other (MoE
+    combines its experts with a scatter whose adds may run in any order),
+    bit for bit on the dense arch."""
+    cfg, params, batch = _lm_case(arch)
+    out = {r: _grads_on(dataclasses.replace(cfg, remat=r), params, batch,
+                        cuda_device) for r in ("none", "dots", "full")}
+    base = _flat_leaves(out["none"][1])
+    for r in ("dots", "full"):
+        for name, g in _flat_leaves(out[r][1]).items():
+            if arch == "codeqwen1.5-7b":
+                assert torch.equal(g, base[name]), (r, name)
+            else:
+                assert _lm_rel(g, base[name]) <= 1e-6, (r, name)
+
+
+def test_train_launchers_on_card(cuda_device, tmp_path, capsys):
+    """The LM launcher on the card, and the GNN launcher's int path through
+    the hand-written bitserial_gemm: its launches a step as the trainer's
+    GEMMs count them (3 layers, 4 diagonal blocks a batch)."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train
+
+    res = train.main(["--arch", "rwkv6-1.6b", "--smoke", "--steps", "4",
+                      "--batch", "2", "--seq", "32", "--log-every", "1",
+                      "--ckpt-dir", str(tmp_path)])
+    assert res["device"].startswith("cuda") and len(res["history"]) == 4
+    _build.reset_launches()
+    res = train.main(["--arch", "qgtc-gcn", "--smoke", "--int-path",
+                      "--steps", "2", "--log-every", "1"])
+    assert res["device"].startswith("cuda")
+    assert _build.LAUNCHES["bitserial_gemm"] == 2 * \
+        chip_smoke.int_launches_per_step(3, 4, 0)
