@@ -210,7 +210,24 @@ without printing a result:
      parameters against an uninterrupted run's; qgtc-gcn --smoke
      --int-path for 8 steps, bitserial_gemm launched as often as the int
      step's GEMMs (these launches join the kernels line); and
-     examples/train_lm_100m at ~100M parameters for 100 steps.
+     examples/train_lm_100m at ~100M parameters for 100 steps. The decode
+     bound of 17 and the MFU of 18 are also taken through
+     perf/roofline.py (roofline_terms' memory term, model_flops over
+     HW's bf16 peak), and must equal the phases' own figures.
+
+  19. Dist — (a) a process group of one rank on NCCL (a FileStore, no
+     port) and launch/mesh.make_local_mesh() as a (1, 1) mesh on the card:
+     codeqwen1.5-7b at full width (d_model 4096, 32 heads, vocab 92416)
+     with depth cut to 2 layers as in phase 18, in float32: loss_and_grads
+     and one train step with DTensor parameters against the plain ones,
+     the loss, every gradient and every updated parameter within 1e-6
+     relative to the leaf's largest element; compressed_psum_mean over NCCL bit-equal to the local round
+     trip, 3 rounds of error feedback; forward_int of qgtc-gcn under
+     shard_ctx bit-equal to the forward without a context, through
+     bitserial_gemm (these launches join the kernels line). (b)
+     launch/dryrun.py as four subprocesses (codeqwen1.5-7b x train_4k and
+     decode_32k on the fake 16x16 and 2x16x16 groups), every cell OK, the
+     report's roofline and dry-run tables printed.
 
 Phases 1-14 run with tuning off (tune.use_table(None)), so that they hold
 what they held before a table was packaged: the tuned path is measured in
@@ -296,10 +313,9 @@ SCHEDULES = ("dense", "mask", "compact", "sgt")
 # H100 SXM published peaks: HBM bytes/s, the float32 rate outside the
 # tensor cores, where bitpack's float arithmetic runs, and the dense bf16
 # tensor-core rate, where wq_gemm's runs (float32 x as three exact bf16
-# passes, bf16 x as one).
-PEAK_BYTES_S = 3.35e12
-PEAK_F32_S = 67e12
-PEAK_BF16_S = 989e12
+# passes, bf16 x as one). main() reads them from the port's one table of
+# card constants, repro_torch.perf.roofline.HW.
+PEAK_BYTES_S = PEAK_F32_S = PEAK_BF16_S = None
 # The 'vpu' kernels' integer rates, results a clock on one SM for compute
 # capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
 # throughput): popcount 16, and 64 for the 32-bit AND (LOP3) and the
@@ -3059,7 +3075,7 @@ def _lm_serve(torch, card):
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.launch.serve import DecodeEngine
     from repro_torch.models import lm
-    from repro_torch.perf import kernel_cost, report
+    from repro_torch.perf import kernel_cost, report, roofline
     from repro_torch.train import data
 
     base = configs.get(LM_SERVE["arch"])
@@ -3100,6 +3116,13 @@ def _lm_serve(torch, card):
         shape = ShapeSpec("decode", "decode", max_seq, slots)
         cost = kernel_cost.analytic_cost(cfg, shape, 1, n_params)
         bound_ms = cost.hbm_bytes_per_device / PEAK_BYTES_S * 1e3
+        # the same bound through perf/roofline.py: its memory term
+        rl_ms = roofline.roofline_terms(
+            cost.flops_per_device, cost.hbm_bytes_per_device, 0.0,
+            n_devices=1).memory_s * 1e3
+        if rl_ms != bound_ms:
+            raise AssertionError(f"roofline memory term {rl_ms} ms against "
+                                 f"the phase's bound {bound_ms} ms")
         prof = _lm_profile(torch, engine, prompts)
         row = dict(phase="lm_serve", arch=cfg.name, run=name, wq_bits=wq_bits,
                    kv_bits=kv_bits, params=n_params, slots=slots,
@@ -3114,6 +3137,7 @@ def _lm_serve(torch, card):
                    decode_bound_ms=bound_ms, bound_by="bytes",
                    bound_bytes=cost.hbm_bytes_per_device,
                    bound_share_p50=bound_ms / p50,
+                   roofline_bound_share_p50=rl_ms / p50,
                    **prof, seconds=time.perf_counter() - t_run, card=card)
         if qstats is not None:
             # a footprint: the forward reads the dequantized bf16 weights
@@ -3177,7 +3201,6 @@ GNN_TRAIN_CLI = ["--arch", "qgtc-gcn", "--smoke", "--int-path", "--steps",
                  "8", "--log-every", "1"]
 GNN_TRAIN_BLOCKS = 4   # --smoke: 8 parts, batches of 4
 LM_100M_CLI = ["--steps", "100"]
-PEAK_BF16_S = 989e12   # H100 SXM dense bf16, NVIDIA's datasheet
 
 
 def _lm_flat(tree, prefix=""):
@@ -3341,7 +3364,7 @@ def _lm_train_cell(torch, card):
     from repro_torch import configs
     from repro_torch.launch import steps
     from repro_torch.models import lm
-    from repro_torch.perf import report
+    from repro_torch.perf import report, roofline
     from repro_torch.train import data
     from repro_torch.train import optimizer as opt
 
@@ -3366,6 +3389,12 @@ def _lm_train_cell(torch, card):
     peak = torch.cuda.max_memory_allocated()
     p50 = report.percentile(walls, 50)
     flops = 6 * n_params * tokens
+    # the same MFU through perf/roofline.py
+    rl_mfu = (roofline.model_flops(n_params, tokens, "train") / p50
+              / roofline.HW["peak_flops_bf16"])
+    if rl_mfu != flops / p50 / PEAK_BF16_S:
+        raise AssertionError(f"roofline MFU {rl_mfu} against the phase's "
+                             f"{flops / p50 / PEAK_BF16_S}")
     row = dict(phase="lm_train_cell", arch=cfg.name, params=n_params,
                n_layers=cfg.n_layers, batch=c["batch"], seq=c["seq"],
                remat=cfg.remat, steps=c["steps"], loss_first=first[0],
@@ -3374,7 +3403,8 @@ def _lm_train_cell(torch, card):
                ms_per_step=[w * 1e3 for w in walls], tokens_per_s=tokens / p50,
                peak_memory_gb=peak / 1e9, model_flops_per_step=flops,
                model_flops_note="6 * N * tokens, N every parameter",
-               model_flops_share_of_989_tflops=flops / p50 / PEAK_BF16_S)
+               model_flops_share_of_989_tflops=flops / p50 / PEAK_BF16_S,
+               roofline_mfu=rl_mfu)
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"{cfg.name}: non-finite losses {losses}")
     k = 1 + c["steps"]
@@ -3513,6 +3543,258 @@ def phase_lm_training(torch, card):
     return launches
 
 
+# phase 19: the dist layer on a world-1 NCCL group, and the dry run
+# full width, float32, on a (1, 1) mesh; depth cut as in phase 18 (the
+# float32 parameters, gradients and both moments of the plain and the
+# sharded step side by side: ~40 GB at 2 layers)
+DIST_ARCH = "codeqwen1.5-7b"
+DIST_TRAIN = dict(batch=8, seq=32, lr=1e-3)
+# world size 1: DTensor runs the same local ops as the plain step, so the
+# loss, the gradients and the updated parameters are held to equality
+# within this relative bound (expected 0)
+DIST_TOL = 1e-6
+DIST_CPSUM_ROUNDS = 3
+DIST_GNN = dict(dataset="proteins", scale=0.01, parts=8, batch_size=4)
+DIST_DRYRUN = (("codeqwen1.5-7b", "train_4k"), ("codeqwen1.5-7b", "decode_32k"))
+# a cell's step budget on the host: DTensor plans each distinct (op,
+# placements) once, minutes on the 3-D mesh for an op it must plan with its
+# graph search; every cell must be OK within it
+DIST_CELL_TIMEOUT_S = 240
+
+
+def _dist_full(x):
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
+def _dist_train_step(torch, mesh, card):
+    """(a) codeqwen1.5-7b at full width, depth cut as in phase 18, float32:
+    the gradients and one train step with DTensor parameters against the
+    plain ones, both on the card."""
+    from repro_torch import configs
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.train import data
+    from repro_torch.train import optimizer as opt
+
+    cut = LM_TRAIN_DEPTH[DIST_ARCH]
+    cfg = dataclasses.replace(configs.get(DIST_ARCH), dtype="float32", **cut)
+    params, axes = lm.init_lm(cfg, torch.Generator(device=DEVICE)
+                              .manual_seed(0), device=DEVICE)
+    batch = data.batch_for_arch(cfg, 0, 0, DIST_TRAIN["batch"],
+                                DIST_TRAIN["seq"], device=DEVICE)
+    rules = shd.make_rules("train")
+    ps = steps.distribute(opt.tree_map(torch.clone, params),
+                          steps.param_shardings(mesh, rules, axes, params))
+    b_sh = steps.batch_shardings(cfg, mesh, rules)
+    bs = steps.distribute(batch, {k: b_sh[k] for k in batch})
+    if not all(type(x).__name__ == "DTensor"
+               and x.to_local().device.type == DEVICE
+               for x in opt.tree_leaves(ps)):
+        raise AssertionError("the sharded parameters are not DTensors on "
+                             "the card")
+
+    def leaf_err(got, want):  # on the card: the leaves are GBs
+        err = 0.0
+        for i, (a, b) in enumerate(zip(opt.tree_leaves(want),
+                                       opt.tree_leaves(got), strict=True)):
+            b = _dist_full(b).detach()
+            if type(a) is not torch.Tensor or type(b) is not torch.Tensor:
+                raise AssertionError(f"leaf {i}: {type(a).__name__} "
+                                     f"against {type(b).__name__}")
+            err = max(err, float((b - a).abs().max()
+                                 / a.abs().max().clamp(min=1e-12)))
+        return err
+
+    _, _, g1 = steps.loss_and_grads(params, batch, cfg)
+    with steps.sharded(mesh, rules):
+        _, _, g2 = steps.loss_and_grads(ps, bs, cfg)
+    g_err = leaf_err(g2, g1)
+    del g1, g2
+    step = steps.make_train_step(cfg, opt.AdamWConfig(lr=DIST_TRAIN["lr"]))
+    t0 = time.perf_counter()
+    p1, o1, m1 = step(params, opt.adamw_init(params), batch)
+    loss1 = m1["loss"].item()
+    plain_s = time.perf_counter() - t0
+    del o1
+    t0 = time.perf_counter()
+    with steps.sharded(mesh, rules):
+        p2, o2, m2 = step(ps, opt.adamw_init(ps), bs)
+    loss2 = _dist_full(m2["loss"]).item()
+    sharded_s = time.perf_counter() - t0
+    del o2
+    loss_err = abs(loss2 - loss1) / abs(loss1)
+    p_err = leaf_err(p2, p1)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del p1, p2, ps, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    if max(loss_err, g_err, p_err) > DIST_TOL:
+        raise AssertionError(f"sharded step: loss {loss2} against {loss1}, "
+                             f"grads max rel err {g_err}, params {p_err}")
+    emit(phase="dist_train_step", arch=cfg.name, d_model=cfg.d_model,
+         n_heads=cfg.n_heads, vocab=cfg.vocab, n_layers=cfg.n_layers,
+         depth_cut=cut, dtype=cfg.dtype, batch=DIST_TRAIN["batch"],
+         seq=DIST_TRAIN["seq"], mesh=shd.mesh_shape(mesh), loss=loss2,
+         loss_unsharded=loss1, loss_rel_err=loss_err,
+         grads_max_rel_err=g_err, params_max_rel_err=p_err,
+         tolerance=DIST_TOL, step_s=sharded_s, step_unsharded_s=plain_s,
+         peak_memory_gb=peak, card=card)
+
+
+def _dist_cpsum(torch, card):
+    """(a) compressed_psum_mean on NCCL against the local round trip."""
+    from repro_torch.dist import collectives
+
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    x = 3 * torch.randn((64, 256), generator=gen, device=DEVICE)
+    err = ref_err = None
+    worst = 0.0
+    for _ in range(DIST_CPSUM_ROUNDS):
+        mean, err = collectives.compressed_psum_mean(x, None, nbits=8, err=err)
+        v = x if ref_err is None else x + ref_err
+        scale = v.abs().max().reshape(1)[0].clamp(min=1e-12) / 127.0
+        q = torch.clamp(torch.round(v / scale), -127.0, 127.0).to(torch.int32)
+        deq = q.to(torch.float32) * scale
+        ref_err = v - deq
+        if not (torch.equal(mean, deq / 1) and torch.equal(err, ref_err)):
+            worst = max(worst, float((mean - deq).abs().max()),
+                        float((err - ref_err).abs().max()))
+    if worst:
+        raise AssertionError(f"compressed_psum_mean on NCCL differs from the "
+                             f"local round trip by {worst}")
+    emit(phase="dist_compressed_psum", rounds=DIST_CPSUM_ROUNDS, nbits=8,
+         bit_equal=True, card=card)
+
+
+def _dist_gnn(torch, mesh, card):
+    """(a) forward_int under shard_ctx: bit-equal to the forward without a
+    context, through bitserial_gemm. Returns the launches of the run under
+    the context."""
+    from repro_torch import configs
+    from repro_torch.dist import sharding as shd
+    from repro_torch.graph import partition
+    from repro_torch.graph.datasets import load
+    from repro_torch.kernels import _build
+    from repro_torch.models import gnn
+    from repro_torch.train import intpath, trainer
+    from repro_torch.tune import use_table
+
+    g = DIST_GNN
+    data_ = load(g["dataset"], scale=g["scale"], seed=0)
+    parts = partition.partition(data_.csr, g["parts"])
+    cfg = dataclasses.replace(configs.get("qgtc-gcn"),
+                              in_dim=data_.features.shape[1],
+                              n_classes=int(data_.labels.max()) + 1)
+    batches = trainer.prepare_batches(data_, parts,
+                                      batch_size=g["batch_size"])
+    bp, rp = intpath.batch_caps(batches)
+    art = intpath.ArtifactCache(cfg.x_bits, block_pad=bp, rem_pad=rp,
+                                device=DEVICE).get(batches[0])
+    params = gnn.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                             device=DEVICE)
+    with use_table(None), no_fallback(), torch.no_grad():
+        want = gnn.forward_int(params, art, cfg)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        with shd.shard_ctx(mesh, shd.make_rules("train")):
+            got = gnn.forward_int(params, art, cfg)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    expected = int_launches_per_step(cfg.layers, g["batch_size"], 0)
+    if not torch.equal(want, got) or got.device.type != DEVICE:
+        raise AssertionError("forward_int under shard_ctx differs from the "
+                             "forward without a context")
+    if launches.get("bitserial_gemm") != expected:
+        raise AssertionError(f"forward_int under shard_ctx launched "
+                             f"{launches}, expected {expected} bitserial_gemm")
+    emit(phase="dist_gnn_forward", logits_bit_equal=True, launches=launches,
+         expected_bitserial_gemm=expected, card=card)
+    return launches
+
+
+def _dist_dryrun(torch, card):
+    """(b) launch/dryrun.py as subprocesses on the fake 256- and 512-rank
+    meshes, the report's tables printed."""
+    import os
+    import tempfile
+
+    from repro_torch.perf import report, roofline
+
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(REPO / "src")] + ([os.environ["PYTHONPATH"]]
+                               if os.environ.get("PYTHONPATH") else [])))
+    with tempfile.TemporaryDirectory() as out:
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+             "--shape", shape, "--out", out, "--cell-timeout",
+             str(DIST_CELL_TIMEOUT_S), *mp], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for arch, shape in DIST_DRYRUN for mp in ([], ["--multi-pod"])]
+        try:
+            logs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        recs = report.load(out)
+    bad = [r for r in recs if r["status"] != "OK"]
+    if any(p.returncode for p in procs) or bad or len(recs) != 4:
+        raise AssertionError(f"dry run: {[r.get('error') for r in bad]} "
+                             f"{[log[-1000:] for log in logs]}")
+    for mesh in ("16x16", "2x16x16"):
+        print(f"## Roofline ({mesh}, per-device seconds/step, H100 rates)")
+        print(report.roofline_table(recs, mesh), flush=True)
+    print("## Dry-run detail")
+    print(report.dryrun_table(recs), flush=True)
+    cells = []
+    for r in recs:
+        cell = dict(arch=r["arch"], shape=r["shape"], mesh=r["mesh"],
+                    status=r["status"])
+        if r["status"] == "OK":
+            cell.update(lower_s=r["lower_s"], run_s=r["compile_s"],
+                        param_bytes=r["memory"]["param_bytes"],
+                        collectives_by_op=r["collectives_by_op"],
+                        roofline=r["roofline"])
+        else:
+            cell.update(error=r["error"], where=r["traceback"][-600:])
+        cells.append(cell)
+    emit(phase="dist_dryrun", cells=cells, cell_timeout_s=DIST_CELL_TIMEOUT_S,
+         fits_hbm_against=roofline.HW["hbm_bytes"],
+         card_hbm_bytes=roofline.hbm_bytes(),
+         seconds=time.perf_counter() - t0, card=card)
+
+
+def phase_dist(torch, card):
+    """Phase 19: the dist layer on the card. (a) a world-1 NCCL group over a
+    FileStore and make_local_mesh() as (1, 1): the sharded smoke train step,
+    compressed_psum_mean, forward_int under shard_ctx; (b) the dry run on
+    the fake meshes. Returns the kernel launches of (a)'s run under the
+    context."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.mesh import make_local_mesh
+
+    t_phase = time.perf_counter()
+    mesh = make_local_mesh()
+    if (dist.get_backend() != "nccl" or mesh.device_type != "cuda"
+            or shd.mesh_shape(mesh) != {"data": 1, "model": 1}):
+        raise AssertionError(f"local mesh {mesh} on {dist.get_backend()}")
+    try:
+        _dist_train_step(torch, mesh, card)
+        _dist_cpsum(torch, card)
+        launches = _dist_gnn(torch, mesh, card)
+    finally:
+        dist.destroy_process_group()
+    _dist_dryrun(torch, card)
+    emit(phase="dist_done", kernel_launches=launches,
+         seconds=time.perf_counter() - t_phase, card=card)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3524,9 +3806,12 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO / "src"))
-    # the port's timing method, used by every phase
-    global graph_ms, time_ms
+    # the port's timing method, used by every phase, and its card constants
+    global graph_ms, time_ms, PEAK_BYTES_S, PEAK_F32_S, PEAK_BF16_S
     from repro_torch.perf.report import graph_ms, time_ms
+    from repro_torch.perf.roofline import HW
+    PEAK_BYTES_S, PEAK_F32_S = HW["hbm_bw"], HW["peak_flops_fp32"]
+    PEAK_BF16_S = HW["peak_flops_bf16"]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -3596,6 +3881,8 @@ def main() -> int:
     for name, n in phase_lm_serving(torch, card).items():
         launches[name] += n
     for name, n in phase_lm_training(torch, card).items():
+        launches[name] += n
+    for name, n in phase_dist(torch, card).items():
         launches[name] += n
 
     kernels = []

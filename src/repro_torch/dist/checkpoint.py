@@ -25,9 +25,14 @@ Leaves are host numpy arrays, gathered from the device. A bfloat16 leaf is
 written as the reference's ``np.save`` writes an ``ml_dtypes.bfloat16``
 array, 2-byte void records with the descriptor ``'<V2'``, with
 ``"bfloat16"`` in the manifest; it reads back through ``uint16`` and
-``.view(torch.bfloat16)``, so neither side needs ``ml_dtypes``. The
-reference's ``restore(shardings=...)`` places leaves on a new mesh; the
-port's places them on one device (``device=``, or each leaf of ``like``'s).
+``.view(torch.bfloat16)``, so neither side needs ``ml_dtypes``.
+
+Sharded trees: ``save`` gathers each DTensor leaf to the whole tensor on
+every rank (a collective: every rank of the mesh calls ``save``), rank 0
+writes, and every rank waits for the write. ``restore(shardings=...)``
+distributes each leaf onto the *new* mesh by its ``NamedSharding``, any
+mesh: the reference's elastic restore. Without ``shardings`` each leaf
+goes to one device (``device=``, or each leaf of ``like``'s).
 """
 from __future__ import annotations
 
@@ -97,6 +102,21 @@ def _dtype_name(x) -> str:
     return str(np.asarray(x).dtype)
 
 
+def _gathered(leaf):
+    """A DTensor leaf as the whole tensor (a collective), else the leaf."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(leaf, DTensor):
+        return leaf.full_tensor()
+    return leaf
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
 def _to_numpy(leaf) -> np.ndarray:
     if not isinstance(leaf, torch.Tensor):
         return np.asarray(leaf)
@@ -131,37 +151,91 @@ def _recover_old_tmp(base: Path) -> None:
 
 
 def save(base, step: int, tree, *, cfg_hash: str | None = None,
-         keep: int | None = None) -> Path:
+         keep: int | None = None, mesh_shape=None) -> Path:
     """Atomically write ``tree`` as checkpoint ``step`` under ``base``.
 
-    keep=N  after the write, delete all but the newest N steps. The
-    manifest's ``mesh_shape`` is None: the port runs on one card.
+    keep=N      after the write, delete all but the newest N steps
+    mesh_shape  recorded in the manifest (informational: the mesh the run
+                was on; restore works on any mesh regardless)
+
+    With DTensor leaves every rank calls it. The leaves are gathered one at
+    a time (every rank joins each gather) and rank 0 copies each to the
+    host and frees it before the next, so no rank holds more than one
+    whole leaf beside its shards. Every rank then learns whether rank 0's
+    write succeeded, and raises if it did not.
     """
     base = Path(base)
+    final = base / _step_name(step)
+    writer = _rank() == 0
+    err = None
+    tmp = shapes = dtypes = None
+    if writer:
+        try:
+            tmp = _begin(base, step)
+            shapes, dtypes = [], []
+        except Exception as e:  # raised after the gathers
+            err = e
+    for i, leaf in enumerate(_leaves(tree)):
+        full = _gathered(leaf)
+        if writer and err is None:
+            try:
+                name = _dtype_name(full)
+                arr = _to_numpy(full)
+                shapes.append(list(arr.shape))
+                dtypes.append(name)
+                _write_leaf(tmp / f"leaf_{i:05d}.npy", arr, name)
+            except Exception as e:  # raised below
+                err = e
+        del full
+    if writer and err is None:
+        try:
+            _commit(base, step, tmp, shapes, dtypes, cfg_hash, keep,
+                    mesh_shape)
+        except Exception as e:  # raised below
+            err = e
+    failed = _writer_failed(err is not None)
+    if err is not None:
+        raise err
+    if failed:
+        raise RuntimeError(f"checkpoint step {step} under {base}: rank 0's "
+                           f"write failed")
+    return final
+
+
+def _writer_failed(failed: bool) -> bool:
+    """Rank 0's ``failed``, on every rank (the identity in one process)."""
+    import torch.distributed as dist
+
+    if not (dist.is_initialized() and dist.get_world_size() > 1):
+        return failed
+    flag = [failed]
+    dist.broadcast_object_list(flag, src=0)
+    return bool(flag[0])
+
+
+def _begin(base: Path, step: int) -> Path:
+    """A fresh ``step_N.tmp`` directory, after clearing crash leftovers."""
     base.mkdir(parents=True, exist_ok=True)
     _recover_old_tmp(base)
     for stale in base.glob("step_*.tmp"):  # crash leftovers of earlier runs
         if not stale.name.endswith(".old.tmp"):
             shutil.rmtree(stale, ignore_errors=True)
-
-    leaves = _leaves(tree)
     tmp = base / (_step_name(step) + ".tmp")
     tmp.mkdir()
-    shapes, dtypes = [], []
-    for i, leaf in enumerate(leaves):
-        name = _dtype_name(leaf)
-        arr = _to_numpy(leaf)
-        shapes.append(list(arr.shape))
-        dtypes.append(name)
-        _write_leaf(tmp / f"leaf_{i:05d}.npy", arr, name)
+    return tmp
+
+
+def _commit(base: Path, step: int, tmp: Path, shapes, dtypes, cfg_hash,
+            keep, mesh_shape) -> None:
+    """Write the manifest into ``tmp`` and move it into place."""
     manifest = {
         "format": 1,
         "step": int(step),
         "cfg_hash": cfg_hash,
-        "n_leaves": len(leaves),
+        "n_leaves": len(shapes),
         "shapes": shapes,
         "dtypes": dtypes,
-        "mesh_shape": None,
+        "mesh_shape": dict(mesh_shape) if mesh_shape is not None else None,
     }
     (tmp / "manifest.json").write_text(json.dumps(manifest, indent=1))
 
@@ -180,7 +254,6 @@ def save(base, step: int, tree, *, cfg_hash: str | None = None,
     if keep is not None:
         for s in list_steps(base)[:-keep]:
             shutil.rmtree(base / _step_name(s), ignore_errors=True)
-    return final
 
 
 def _to_torch(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
@@ -191,14 +264,16 @@ def _to_torch(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
 
 
 def restore(base, like, *, cfg_hash: str | None = None,
-            step: int | None = None, device=None):
+            step: int | None = None, device=None, shardings=None):
     """Load checkpoint ``step`` (default: the latest) in the structure of
     ``like``. Returns ``(tree, manifest)``.
 
     Checks ``cfg_hash`` (when both sides have one), the leaf count and
     every shape against ``like`` before reading a leaf. Each leaf goes to
     ``device``, or, with None, to the device of ``like``'s leaf in its
-    place (the CPU where that is not a tensor).
+    place (the CPU where that is not a tensor). With ``shardings`` (a tree
+    of ``dist.sharding.NamedSharding`` in the structure of ``like``), each
+    leaf is distributed onto its mesh instead, whatever mesh wrote it.
     """
     base = Path(base)
     if base.is_dir():
@@ -227,9 +302,14 @@ def restore(base, like, *, cfg_hash: str | None = None,
                 f"shape mismatch at leaf_{i:05d}: checkpoint has {shape}, "
                 f"restore target has {list(leaf.shape)}")
 
+    shs = None if shardings is None else _leaves(shardings)
     loaded = []
     for i, (leaf, name) in enumerate(zip(flat, manifest["dtypes"])):
         t = _to_torch(np.load(d / f"leaf_{i:05d}.npy"), name)
+        if shs is not None:
+            mesh = shs[i].mesh
+            loaded.append(shs[i].distribute(t.to(mesh.device_type)))
+            continue
         dev = device if device is not None else (
             leaf.device if isinstance(leaf, torch.Tensor) else "cpu")
         loaded.append(t.to(dev))

@@ -1,0 +1,466 @@
+"""Logical-axis sharding rules and the sharding context, as the reference's
+``repro.dist.sharding``.
+
+The models annotate tensors with *logical* axis names only
+(``constrain(h, "batch", None, None)``); which mesh axis, if any, a logical
+name lands on is decided here, per execution mode, by the reference's rule
+tables. Resolution is permissive by construction: a logical name that is not
+in the table, a mesh axis the mesh does not have, a mesh axis already used
+by an earlier dimension, or one that does not divide the dimension all
+resolve to "replicated", so smoke-scale configs run under the production
+rules unchanged.
+
+Where the reference hands a ``PartitionSpec`` to XLA, the port turns the
+same spec into DTensor placements on a ``torch.distributed`` DeviceMesh
+(``placements``): a dimension mapped to mesh axes is ``Shard(dim)`` on each
+of them, every other mesh axis ``Replicate()``. A mesh is either a
+``DeviceMesh`` with dimension names or a shape-only ``AbstractMesh``, which
+is enough to compute specs without ranks. ``constrain`` is the identity
+outside a ``shard_ctx`` and on a plain tensor; on a DTensor inside one it
+redistributes to the resolved placements (the reference's
+``with_sharding_constraint``), an all-gather, a local slice or nothing.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import math
+import threading
+
+import torch
+
+__all__ = ["make_rules", "shard_ctx", "current_ctx", "sharded", "constrain",
+           "named_sharding", "pspec", "placements", "mesh_shape", "axis_size",
+           "shard_map", "spec_of", "unflatten", "write_along", "is_sharded",
+           "logical_spec", "AbstractMesh", "NamedSharding", "PartitionSpec",
+           "LOGICAL_AXES"]
+
+# Every logical axis name the model zoo uses, in one place (the reference's
+# table): param axes from the Initializer annotations in models/, activation
+# axes from the ``constrain`` calls, cache axes from lm.init_decode_cache.
+LOGICAL_AXES = (
+    # batch-like (data-parallel) axes; gnn_nodes is the node dim of a
+    # subgraph batch (models/gnn.py forward_int activations)
+    "batch", "moe_group", "cache_batch", "gnn_nodes",
+    # tensor-parallel param axes
+    "vocab", "qkv", "mlp", "embed2", "heads", "kv_heads",
+    "experts", "expert_mlp", "expert_embed",
+    # tensor-parallel activation axes
+    "vocab_act", "qkv_compute", "mlp_compute", "mlp_act",
+    "embed2_compute", "experts_act",
+    # sequence / replicated-by-default axes
+    "cache_seq", "embed", "norm", "layers", "enc_layers",
+)
+
+
+def make_rules(mode: str, *, multi_pod: bool = False,
+               context_parallel: bool = False,
+               zero3: bool = False) -> dict:
+    """Logical-name -> mesh-axis table for one execution mode.
+
+    mode             "train" or "serve"
+    multi_pod        data parallelism spans ("pod", "data") instead of "data"
+    context_parallel long-context serving: the KV/cache sequence dim also
+                     splits over "model" (split-KV)
+    zero3            train only: additionally shard the non-TP dim of every
+                     2-D weight over "data" (ZeRO-3 compute layout)
+
+    Every name in :data:`LOGICAL_AXES` has an entry: a mesh axis name, a
+    tuple of mesh axis names, or None (replicated).
+    """
+    if mode not in ("train", "serve"):
+        raise ValueError(f"mode must be 'train' or 'serve', got {mode!r}")
+    dp = ("pod", "data") if multi_pod else "data"
+    return {
+        # data parallelism
+        "batch": dp,
+        "moe_group": dp,
+        "cache_batch": dp,
+        "gnn_nodes": dp,
+        # megatron TP: shard the "compute" dim of each projection pair
+        "vocab": "model",
+        "vocab_act": "model",
+        "qkv": "model",
+        "qkv_compute": "model",
+        "heads": "model",
+        "kv_heads": "model",
+        "mlp": "model",
+        "mlp_compute": "model",
+        "mlp_act": "model",
+        "embed2": "model",
+        "embed2_compute": "model",
+        # expert parallelism: experts over "data" (all_to_all within a pod),
+        # expert FFN weights keep megatron TP over "model"
+        "experts": "data",
+        "experts_act": "data",
+        "expert_mlp": "model",
+        "expert_embed": None,
+        # replicated by default
+        "embed": "data" if (zero3 and mode == "train") else None,
+        "cache_seq": "model" if context_parallel else None,
+        "norm": None,
+        "layers": None,
+        "enc_layers": None,
+    }
+
+
+# -------------------------------------------------------------------- meshes
+
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """A mesh of named axes and sizes, with no ranks behind it: enough for
+    the spec functions (the reference's ``jax.sharding.AbstractMesh``)."""
+    axis_sizes: tuple
+    axis_names: tuple
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+
+def mesh_axis_names(mesh) -> tuple:
+    if isinstance(mesh, AbstractMesh):
+        return mesh.axis_names
+    return tuple(mesh.mesh_dim_names or ())
+
+
+def mesh_shape(mesh) -> dict:
+    """{axis name: size} of a DeviceMesh or an AbstractMesh."""
+    if isinstance(mesh, AbstractMesh):
+        return mesh.shape
+    return dict(zip(mesh_axis_names(mesh), mesh.shape))
+
+
+class PartitionSpec(tuple):
+    """One entry per tensor dimension: None, a mesh axis name, or a tuple of
+    mesh axis names (the reference's ``jax.sharding.PartitionSpec``)."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self):
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+def pspec(*axes) -> PartitionSpec:
+    """Build a raw spec: the one sanctioned constructor outside dist/ and
+    launch/ (the lint rule ``sharding-spec-layering`` holds code elsewhere
+    to it)."""
+    return PartitionSpec(*axes)
+
+
+def placements(mesh, spec) -> tuple:
+    """DTensor placements of ``spec`` on ``mesh``, one per mesh axis in the
+    mesh's order: ``Shard(d)`` on each mesh axis of more than one rank that
+    dimension ``d`` maps to, ``Replicate()`` on the rest. A dimension mapped
+    to several axes (``("pod", "data")``) is split over them major to minor,
+    as in JAX. A shard over an axis of one rank is the whole dimension, so
+    it is ``Replicate()``: the same layout, which older DTensor releases can
+    reshape where they refuse to merge a "sharded" dimension."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = mesh_axis_names(mesh)
+    sizes = mesh_shape(mesh)
+    out = [Replicate()] * len(names)
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        for a in ((entry,) if isinstance(entry, str) else tuple(entry)):
+            if sizes[a] > 1:
+                out[names.index(a)] = Shard(d)
+    return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec on a mesh (the reference's ``jax.sharding.NamedSharding``)."""
+    mesh: object
+    spec: PartitionSpec
+
+    def __post_init__(self):
+        seen: set = set()
+        for entry in self.spec:
+            for a in (() if entry is None else (entry,)
+                      if isinstance(entry, str) else entry):
+                if a in seen:
+                    raise ValueError(
+                        f"a spec maps each mesh axis to at most one "
+                        f"dimension, but {self.spec!r} has duplicate "
+                        f"entries for {a!r}")
+                seen.add(a)
+
+    @property
+    def placements(self) -> tuple:
+        return placements(self.mesh, self.spec)
+
+    def distribute(self, x: torch.Tensor):
+        """``x`` (the same global tensor on every rank) as a DTensor of this
+        sharding, each rank keeping its shard with no communication; a
+        DTensor is redistributed."""
+        from torch.distributed.tensor import DTensor, distribute_tensor
+
+        if isinstance(x, DTensor):
+            return x.redistribute(self.mesh, self.placements)
+        return distribute_tensor(x, self.mesh, self.placements,
+                                 src_data_rank=None)
+
+
+# ------------------------------------------------------------------ context
+
+class _CtxStack(threading.local):
+    def __init__(self):
+        self.stack: list = []
+
+
+_CTX = _CtxStack()
+
+
+@contextlib.contextmanager
+def shard_ctx(mesh, rules):
+    """Install (mesh, rules) as the active sharding context.
+
+    Inside the context, :func:`constrain` redistributes DTensors and
+    :func:`current_ctx` returns ``(mesh, rules)``; contexts nest (innermost
+    wins).
+    """
+    _CTX.stack.append((mesh, rules))
+    try:
+        yield (mesh, rules)
+    finally:
+        _CTX.stack.pop()
+
+
+def current_ctx():
+    """The innermost active ``(mesh, rules)``, or None outside any."""
+    return _CTX.stack[-1] if _CTX.stack else None
+
+
+@contextlib.contextmanager
+def sharded(mesh, rules):
+    """The context a sharded step runs in: ``shard_ctx(mesh, rules)``, and
+    plain tensors the model makes (positions, masks) taken as replicated
+    where they meet DTensors."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    with shard_ctx(mesh, rules), implicit_replication():
+        yield
+
+
+# --------------------------------------------------------------- resolution
+
+def axis_size(mesh, axes) -> int:
+    """The number of ranks along a spec entry: 1 for None, a mesh axis's
+    size, or the product of a tuple of axes' sizes."""
+    if axes is None:
+        return 1
+    shape = mesh_shape(mesh)
+    return math.prod(shape[a] for a in
+                     ((axes,) if isinstance(axes, str) else axes))
+
+
+def _resolve_one(mesh, rules, name, dim: int | None, used: set):
+    """One logical name -> the mesh-axis entry of a spec.
+
+    Drops mesh axes the mesh does not have, axes already used by an earlier
+    dim of the same spec, and (when ``dim`` is known) mappings whose
+    combined size does not divide the dimension.
+    """
+    if name is None:
+        return None
+    ax = rules.get(name)
+    if ax is None:
+        return None
+    names = mesh_axis_names(mesh)
+    cand = (ax,) if isinstance(ax, str) else tuple(ax)
+    cand = tuple(a for a in cand if a in names and a not in used)
+    if not cand:
+        return None
+    if dim is not None and dim % axis_size(mesh, cand) != 0:
+        return None
+    used.update(cand)
+    return cand if len(cand) > 1 else cand[0]
+
+
+def _spec_for(mesh, rules, names, shape=None) -> PartitionSpec:
+    used: set = set()
+    return PartitionSpec(*[
+        _resolve_one(mesh, rules, n, None if shape is None else shape[i], used)
+        for i, n in enumerate(names)])
+
+
+def is_sharded(x) -> bool:
+    """Whether ``x`` is a DTensor (a tensor laid out on a mesh)."""
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def spec_of(x) -> PartitionSpec:
+    """The spec of a DTensor's layout: for each dimension the mesh axes that
+    shard it, major to minor (None throughout for a plain tensor)."""
+    entries: list = [[] for _ in range(x.ndim)]
+    if is_sharded(x):
+        from torch.distributed.tensor import Shard
+
+        for a, p in zip(mesh_axis_names(x.device_mesh), x.placements):
+            if isinstance(p, Shard):
+                entries[p.dim].append(a)
+    return PartitionSpec(*[None if not e else e[0] if len(e) == 1
+                           else tuple(e) for e in entries])
+
+
+def logical_spec(mesh, rules, names, shape) -> PartitionSpec:
+    """The spec the rules give logical ``names`` for a tensor of
+    ``shape`` on ``mesh`` (what ``constrain`` resolves to)."""
+    return _spec_for(mesh, rules, names, tuple(shape))
+
+
+def constrain(x: torch.Tensor, *logical_axes):
+    """Apply the active sharding rules to ``x`` (one name or None per dim).
+
+    The identity outside a :func:`shard_ctx` and on a plain tensor. On a
+    DTensor inside one, each logical name is resolved through the context's
+    rule table (dims whose mesh axis does not divide their size stay
+    replicated) and ``x`` is redistributed to those placements on its own
+    mesh; autograd runs the inverse collective in backward.
+    """
+    ctx = current_ctx()
+    if ctx is None:
+        return x
+    if len(logical_axes) != x.ndim:
+        raise ValueError(
+            f"constrain: got {len(logical_axes)} logical axes for a "
+            f"{x.ndim}-d tensor (shape {tuple(x.shape)})")
+    if not is_sharded(x):
+        return x
+    mesh, rules = ctx
+    spec = _spec_for(mesh, rules, logical_axes, tuple(x.shape))
+    target = placements(x.device_mesh, spec)
+    if tuple(x.placements) == target:
+        return x
+    return x.redistribute(x.device_mesh, target)
+
+
+def named_sharding(mesh, axes, rules) -> NamedSharding:
+    """Logical axes tuple -> NamedSharding on ``mesh`` (no shape knowledge;
+    for the shape-aware version see launch.steps.param_shardings)."""
+    return NamedSharding(mesh, _spec_for(mesh, rules, axes))
+
+
+def _sharded_along(x, dim: int) -> list:
+    """Sizes of the mesh axes a DTensor ``x`` is sharded over along
+    ``dim`` (empty for a plain tensor)."""
+    if not is_sharded(x):
+        return []
+    from torch.distributed.tensor import Shard
+
+    return [x.device_mesh.size(i) for i, p in enumerate(x.placements)
+            if isinstance(p, Shard) and p.dim == dim]
+
+
+def unflatten(x: torch.Tensor, dim: int, sizes: tuple) -> torch.Tensor:
+    """``x.unflatten(dim, sizes)``.
+
+    A DTensor whose ``dim`` is sharded over mesh axes that do not divide
+    ``sizes[0]`` (8 kv heads on a 16-way "model" axis) is first gathered
+    along it: DTensor cannot split a dim unevenly, where XLA reshards at
+    the reshape.
+    """
+    dim = dim % x.ndim
+    along = _sharded_along(x, dim)
+    if along and sizes[0] % math.prod(along):
+        from torch.distributed.tensor import Replicate, Shard
+
+        x = x.redistribute(x.device_mesh, [
+            Replicate() if isinstance(p, Shard) and p.dim == dim else p
+            for p in x.placements])
+    return x.unflatten(dim, sizes)
+
+
+def write_along(dst: torch.Tensor, dim: int, index, src: torch.Tensor) -> None:
+    """``dst[..., index, ...] = src`` along ``dim``, in place; ``index`` is a
+    slice or a 1-d index tensor.
+
+    On a DTensor sharded along ``dim`` (a split-KV cache's sequence) each
+    rank writes the positions it holds, through a masked select: DTensor
+    cannot write in place across the shards of a dim.
+    """
+    if not _sharded_along(dst, dim):
+        dst[(slice(None),) * dim + (index,)] = src
+        return
+    n = dst.shape[dim]
+    if isinstance(index, slice):
+        index = torch.arange(index.start, index.stop, device=dst.device)
+    eq = torch.arange(n, device=index.device)[:, None] == index[None, :]
+    shape = [1] * dst.ndim
+    shape[dim] = n
+    vals = src.index_select(dim, eq.to(torch.int64).argmax(1))
+    dst.copy_(torch.where(eq.any(1).reshape(shape), vals, dst))
+
+
+class _SumOver(torch.autograd.Function):
+    """All-reduce (sum) over process groups; the backward passes the
+    gradient through: the sum's every input sees the whole output."""
+
+    @staticmethod
+    def forward(x, *groups):
+        from repro_torch.dist.collectives import all_reduce
+
+        for g in groups:
+            x = all_reduce(x, g)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (grad, *[None] * ctx.n)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.n = len(inputs) - 1
+
+
+def shard_map(fn, mesh, *, in_specs, out_specs, sum_over: tuple = ()):
+    """``fn`` on each rank's shards (the reference's ``jax.shard_map``).
+
+    Each argument is redistributed to its spec in ``in_specs`` (a plain
+    tensor is taken as replicated) and ``fn`` gets the local shards: plain
+    tensors, on which it may issue collectives itself. Its output is the
+    local shard of ``out_specs``; over the mesh axes in ``sum_over`` each
+    rank holds a partial sum, which is summed (the reference's ``psum``
+    inside the function). With only plain tensors in, the output is the
+    whole plain tensor.
+
+    Gradients: the sum passes the output's gradient to every rank. An
+    argument replicated over a mesh axis gets the sum of the ranks' local
+    gradients over it where the ranks' outputs are distinct terms (the
+    output is sharded over the axis, or summed over it); where the output
+    is replicated over the axis too, every rank computed the same thing and
+    holds the whole gradient.
+    """
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    names = mesh_axis_names(mesh)
+    groups = [mesh.get_group(a) for a in sum_over]
+    out_place = placements(mesh, out_specs)
+    distinct = [not isinstance(p, Replicate) or a in sum_over
+                for a, p in zip(names, out_place)]
+
+    def run(*args):
+        any_dt = any(isinstance(x, DTensor) for x in args)
+        local = []
+        for x, spec in zip(args, in_specs, strict=True):
+            if not isinstance(x, DTensor):
+                x = DTensor.from_local(x, mesh, [Replicate()] * len(names),
+                                       run_check=False)
+            place = placements(mesh, spec)
+            grad_place = [Partial() if isinstance(pl, Replicate) and dist
+                          else pl for pl, dist in zip(place, distinct)]
+            local.append(x.redistribute(mesh, place)
+                         .to_local(grad_placements=grad_place))
+        out = fn(*local)
+        if groups:
+            out = _SumOver.apply(out, *groups)
+        out = DTensor.from_local(out, mesh, out_place, run_check=False)
+        return out if any_dt else out.full_tensor()
+
+    return run

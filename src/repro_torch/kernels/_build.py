@@ -150,7 +150,15 @@ def launch(name: str, out, args: tuple, device):
 def kernel_device(*tensors) -> torch.device | None:
     """Where a wrapper's operands send it: None for CPU tensors (the plain
     version runs), their CUDA device for CUDA tensors (the kernel runs).
-    Raises for operands on different devices or on any other device."""
+    Raises for operands on different devices or on any other device, and
+    for a DTensor: a sharded caller passes its local shards, so no DTensor
+    reaches a launch."""
+    for x in tensors:
+        cls = type(x)
+        if cls.__name__ == "DTensor" and cls.__module__.startswith(
+                "torch.distributed"):
+            raise TypeError("a DTensor reached a kernel wrapper: pass its "
+                            "local shard (to_local())")
     devices = {x.device for x in tensors}
     if len(devices) != 1:
         raise ValueError(f"operands are on different devices: {sorted(map(str, devices))}")

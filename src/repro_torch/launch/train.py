@@ -24,9 +24,20 @@ GNN), then a ``done:`` line.
 LM archs: ``--smoke`` trains the arch's reduced same-family config;
 ``--n-micro`` splits each batch into microbatches; ``--grad-compress-bits``
 quantizes the gradients with error feedback before the update (the
-residuals are not checkpointed, as in the reference). One card runs
-``--model-parallel 1`` only: model parallelism comes with the multi-card
-work (sharding).
+residuals are not checkpointed, as in the reference).
+
+``--model-parallel N`` (N > 1, or any N when the process was started by a
+launcher that sets ``WORLD_SIZE``) trains on a (data, model) mesh over every
+rank of the default process group (``launch.mesh.make_local_mesh``: NCCL
+on the card, gloo with ``--device cpu``), which raises when the world size
+is not a multiple of N. Parameters and moments are DTensors distributed by
+``steps.param_shardings`` / ``opt_shardings`` under the train rules, each
+rank draws the same global batch and keeps its data shard, and the step
+runs under ``shard_ctx``. Checkpoints gather to host numpy and restore onto
+whatever mesh the run has, so a run resumes at any ``--model-parallel``.
+``--grad-compress-bits`` quantizes the DTensor gradients there: each leaf's
+scale is the max-abs over all its shards, as the reference's jitted step
+computes it over the global array.
 
 GNN archs (qgtc-gcn / qgtc-gin) take the same loop over Cluster-GCN
 subgraph batches; ``--int-path`` trains through the integer bit-serial
@@ -41,12 +52,15 @@ the uninterrupted one.
   python -m repro_torch.launch.train --arch rwkv6-1.6b --smoke --device cpu
   python -m repro_torch.launch.train --arch qgtc-gcn --smoke --int-path \\
       --steps 30 --ckpt-dir /tmp/gnn-ckpt
+  torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+      --arch codeqwen1.5-7b --smoke --model-parallel 2
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import os
 import sys
 import time
 
@@ -57,6 +71,7 @@ from repro_torch import configs
 from repro_torch.configs.base import smoke_config
 from repro_torch.device import resolve_device
 from repro_torch.dist import checkpoint as ckpt
+from repro_torch.dist import sharding as shd
 from repro_torch.dist.elastic import StragglerWatchdog
 from repro_torch.launch import steps as step_lib
 from repro_torch.models import gnn, lm
@@ -71,16 +86,18 @@ def _step_seed(*words: int) -> int:
         1, np.uint64)[0])
 
 
-def _restore(args, tree, cfg_hash):
+def _restore(args, tree, cfg_hash, shardings=None):
     """(tree, first step): the latest checkpoint's, or ``tree`` and 0."""
     if not args.ckpt_dir or ckpt.latest_step(args.ckpt_dir) is None:
         return tree, 0
-    tree, manifest = ckpt.restore(args.ckpt_dir, tree, cfg_hash=cfg_hash)
+    tree, manifest = ckpt.restore(args.ckpt_dir, tree, cfg_hash=cfg_hash,
+                                  shardings=shardings)
     print(f"[train] resumed from step {manifest['step']}", flush=True)
     return tree, manifest["step"]
 
 
-def _after_step(args, step, watchdog, history, rec, tree, cfg_hash) -> None:
+def _after_step(args, step, watchdog, history, rec, tree, cfg_hash,
+                mesh_shape=None) -> None:
     """Log, checkpoint and inject the failure, as the reference's loop."""
     rec["straggler"] = watchdog.observe(step, rec["wall_s"])
     if step % args.log_every == 0 or step == args.steps - 1:
@@ -89,7 +106,8 @@ def _after_step(args, step, watchdog, history, rec, tree, cfg_hash) -> None:
         history.append(rec)
         print(f"[train] {json.dumps(rec)}", flush=True)
     if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
-        ckpt.save(args.ckpt_dir, step + 1, tree, cfg_hash=cfg_hash)
+        ckpt.save(args.ckpt_dir, step + 1, tree, cfg_hash=cfg_hash,
+                  mesh_shape=mesh_shape)
     if args.simulate_failure_at == step:
         print(f"[train] SIMULATED FAILURE at step {step}", flush=True)
         sys.exit(17)
@@ -199,16 +217,42 @@ def _compressed_step(cfg, ocfg, q_chunk: int, nbits: int, params):
     return step_fn
 
 
+def _laid_out(params, ostate, shardings):
+    """The trees in the layout ``shardings`` name, as the reference's jitted
+    step keeps it: a run resumed from a checkpoint then issues the same
+    collectives in the same order as one that never stopped."""
+    return (step_lib.distribute(params, shardings[0]),
+            step_lib.distribute(ostate, shardings[1]))
+
+
+def _sharded(args) -> bool:
+    return args.model_parallel > 1 or int(os.environ.get("WORLD_SIZE", 1)) > 1
+
+
 def _train_lm(cfg, args, dev) -> dict:
     if args.smoke:
         cfg = smoke_config(cfg)
     ocfg = opt.AdamWConfig(lr=args.lr, grad_clip=1.0)
     cfg_hash = ckpt.config_hash((cfg, ocfg))
 
-    params, _ = lm.init_lm(
+    params, axes = lm.init_lm(
         cfg, torch.Generator(device=dev).manual_seed(args.seed), device=dev)
+    mesh = rules = None
+    shardings = b_sh = None
+    if _sharded(args):
+        from repro_torch.launch.mesh import make_local_mesh
+
+        mesh = make_local_mesh(model=args.model_parallel, device=dev)
+        rules = shd.make_rules("train")
+        p_sh = step_lib.param_shardings(mesh, rules, axes, params)
+        shardings = (p_sh, step_lib.opt_shardings(mesh, rules, axes, params))
+        b_sh = step_lib.batch_shardings(cfg, mesh, rules)
+        params = step_lib.distribute(params, p_sh)
+    mesh_shape = None if mesh is None else shd.mesh_shape(mesh)
     (params, ostate), start_step = _restore(
-        args, (params, opt.adamw_init(params)), cfg_hash)
+        args, (params, opt.adamw_init(params)), cfg_hash, shardings)
+    if mesh is not None:
+        params, ostate = _laid_out(params, ostate, shardings)
     if args.grad_compress_bits:
         step_fn = _compressed_step(cfg, ocfg, args.q_chunk,
                                    args.grad_compress_bits, params)
@@ -221,19 +265,29 @@ def _train_lm(cfg, args, dev) -> dict:
         t0 = time.perf_counter()
         batch = data_lib.batch_for_arch(cfg, args.seed, step, args.batch,
                                         args.seq, device=dev)
-        params, ostate, metrics = step_fn(params, ostate, batch)
-        rec = {"step": step, "loss": metrics["loss"].item()}
+        if mesh is None:
+            params, ostate, metrics = step_fn(params, ostate, batch)
+            loss = metrics["loss"]
+        else:
+            batch = step_lib.distribute(batch, {k: b_sh[k] for k in batch})
+            with step_lib.sharded(mesh, rules):
+                params, ostate, metrics = step_fn(params, ostate, batch)
+            params, ostate = _laid_out(params, ostate, shardings)
+            loss = metrics["loss"]
+            if hasattr(loss, "full_tensor"):
+                loss = loss.full_tensor()
+        rec = {"step": step, "loss": loss.item()}
         rec["wall_s"] = time.perf_counter() - t0
         _after_step(args, step, watchdog, history, rec, (params, ostate),
-                    cfg_hash)
+                    cfg_hash, mesh_shape)
     if args.ckpt_dir:
         ckpt.save(args.ckpt_dir, args.steps, (params, ostate),
-                  cfg_hash=cfg_hash)
+                  cfg_hash=cfg_hash, mesh_shape=mesh_shape)
     print(f"[train] done: p50={watchdog.p50:.3f}s p95={watchdog.p95:.3f}s "
           f"flagged={len(watchdog.flagged)}", flush=True)
     return {"history": history,
             "final_loss": history[-1]["loss"] if history else None,
-            "device": str(dev)}
+            "device": str(dev), "mesh_shape": mesh_shape}
 
 
 def main(argv=None) -> dict:
@@ -271,11 +325,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--stochastic", action="store_true",
                     help="GNN int path: stochastic rounding")
     args = ap.parse_args(argv)
-    if args.model_parallel != 1:
-        ap.error(f"--model-parallel {args.model_parallel}: model "
-                 f"parallelism comes with the port's multi-card work "
-                 f"(dist: sharding rules and a mesh); one card runs "
-                 f"--model-parallel 1")
+    if args.model_parallel < 1:
+        ap.error(f"--model-parallel must be at least 1, got "
+                 f"{args.model_parallel}")
 
     dev = resolve_device(args.device)
     cfg = configs.get(args.arch)

@@ -21,6 +21,11 @@ The qgtc path is built from ``repro_torch.api.nn`` (``qlinear`` /
 engine with ``with repro_torch.api.use("popcount"): ...`` or pass
 ``backend=``/``policy=`` to ``forward_qgtc``.
 
+``forward_int`` carries the reference's sharding hint
+``constrain(u, "gnn_nodes", None)``: the identity on the plain tensors of a
+batch, so under a ``shard_ctx`` the bit-serial kernels run on whole local
+tensors and give the forward's logits bit for bit.
+
 Model settings follow the paper: Cluster-GCN updates-then-aggregates
 (X' = Â (X W), 3 layers, 16 hidden); GIN aggregates-then-updates with a
 2-layer MLP (3 layers, 64 hidden). Parameters are a plain dict
@@ -36,6 +41,7 @@ import torch
 from repro_torch.api import nn as qnn
 from repro_torch.core.quantize import calibrate, fake_quant, quantize
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import constrain
 
 __all__ = ["GNNConfig", "init_params", "forward", "forward_int",
            "forward_qgtc", "quantize_params"]
@@ -185,6 +191,7 @@ def forward_int(params: dict, art, cfg: GNNConfig, *, grad_bits: int = 0,
     for l in range(cfg.layers):
         p = params[f"layer{l}"]
         u = qnn.qlinear_train(h, p["w"], p["b"], w_bits=cfg.w_bits, **kw)
+        u = constrain(u, "gnn_nodes", None)
         h = qnn.qgraph_conv_train(u, art, **kw)
         if l != cfg.layers - 1:
             h = torch.relu(h)

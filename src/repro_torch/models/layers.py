@@ -1,9 +1,10 @@
 """Shared NN layers for the LM zoo: plain functions on tensors over a nested
 dict of parameters, as the reference's ``repro.models.layers``.
 
-The reference's ``constrain`` (a sharding hint, a no-op outside a
-``repro.dist`` shard context) has no counterpart here: the port runs on one
-device.
+``constrain`` is ``repro_torch.dist.sharding.constrain``, re-exported as the
+reference's is: a sharding hint in logical axis names, the identity outside
+a ``shard_ctx`` and on a plain tensor, a redistribution of a DTensor inside
+one.
 """
 from __future__ import annotations
 
@@ -11,7 +12,10 @@ import math
 
 import torch
 
-__all__ = ["rms_norm", "layer_norm", "rope", "apply_rope", "dense",
+# no-op outside a repro_torch.dist shard_ctx; a redistribution inside one
+from repro_torch.dist.sharding import constrain
+
+__all__ = ["constrain", "rms_norm", "layer_norm", "rope", "apply_rope", "dense",
            "cross_entropy", "Initializer"]
 
 

@@ -60,7 +60,7 @@ device.
 """
 from __future__ import annotations
 
-import functools
+import contextlib
 from typing import Any
 
 import torch
@@ -69,9 +69,13 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import (AbstractMesh, current_ctx, is_sharded,
+                                       logical_spec, mesh_shape, pspec,
+                                       shard_map, sharded)
 from repro_torch.models import ssm as S
 from repro_torch.models import transformer as T
-from repro_torch.models.layers import Initializer, layer_norm, rms_norm
+from repro_torch.models.layers import (Initializer, constrain, layer_norm,
+                                       rms_norm)
 
 __all__ = ["init_lm", "lm_loss", "forward_hidden", "init_decode_cache",
            "prefill", "decode_step", "input_specs", "param_count",
@@ -193,7 +197,7 @@ def _tf_block(p, h, cfg: ModelConfig, *, positions=None, cache=None,
         h = h + xa
     f_in = _norm(h, p, "ln2")
     f = T.moe(p["moe"], f_in, cfg) if "moe" in p else T.mlp(p["mlp"], f_in, cfg)
-    return h + f
+    return constrain(h + f, "batch", None, None)
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -204,8 +208,31 @@ def _dots_policy(ctx, op, *args, **kwargs):
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _dots_saveable():
-    return create_selective_checkpoint_contexts(_dots_policy)
+@contextlib.contextmanager
+def _both(a, b):
+    with a, b:
+        yield
+
+
+def _checkpoint(fn, policy=None):
+    """``fn`` under ``torch.utils.checkpoint`` (non-reentrant; ``policy``: a
+    selective one). The recomputation in backward runs in the shard context
+    the forward ran in, so on a mesh it takes the same per-rank paths."""
+    def run(*args, **kwargs):
+        ctx = current_ctx()
+
+        def contexts():
+            fwd, rec = (create_selective_checkpoint_contexts(policy)
+                        if policy is not None else
+                        (contextlib.nullcontext(), contextlib.nullcontext()))
+            if ctx is not None:
+                rec = _both(rec, sharded(*ctx))
+            return fwd, rec
+
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=contexts,
+                          **kwargs)
+
+    return run
 
 
 def _remat(fn, cfg: ModelConfig):
@@ -214,10 +241,7 @@ def _remat(fn, cfg: ModelConfig):
     grad off nothing is saved, so ``fn`` runs as it is."""
     if cfg.remat == "none" or not torch.is_grad_enabled():
         return fn
-    if cfg.remat == "dots":
-        return functools.partial(checkpoint, fn, use_reentrant=False,
-                                 context_fn=_dots_saveable)
-    return functools.partial(checkpoint, fn, use_reentrant=False)
+    return _checkpoint(fn, _dots_policy if cfg.remat == "dots" else None)
 
 
 # ---------------------------------------------------------------------- init
@@ -287,7 +311,42 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator | None = None,
 # ------------------------------------------------------------------- forward
 
 def _embed_tokens(params, tokens):
-    return params["embed"][tokens]
+    table = params["embed"]
+    ctx = current_ctx()
+    if ctx is not None and is_sharded(table) and \
+            not isinstance(ctx[0], AbstractMesh):
+        h = _embed_sharded(table, tokens, *ctx)
+    else:
+        h = table[tokens]
+    return constrain(h, "batch", None, None)
+
+
+def _embed_sharded(table, tokens, mesh, rules):
+    """The lookup as a per-rank function on a mesh: each rank looks up its
+    batch rows in its slice of the vocabulary (tokens outside it give 0)
+    and the slices are summed over the vocabulary's axis, exactly (one
+    term of each sum is not 0). DTensor's own index op cannot take a
+    batch split over two mesh axes in older releases."""
+    t_spec = logical_spec(mesh, rules, ("batch", None), tokens.shape)
+    e_spec = logical_spec(mesh, rules, ("vocab", None), table.shape)
+    v_axes = () if e_spec[0] is None else (
+        (e_spec[0],) if isinstance(e_spec[0], str) else tuple(e_spec[0]))
+    rank = 0
+    for a in v_axes:  # major to minor, as the shard order
+        rank = rank * mesh_shape(mesh)[a] + mesh.get_local_rank(a)
+
+    def local(tab, toks):
+        if not v_axes:
+            return tab[toks]
+        v_loc = tab.shape[0]
+        lo = rank * v_loc
+        hit = (toks >= lo) & (toks < lo + v_loc)
+        rows = tab[(toks - lo).clamp(0, v_loc - 1)]
+        return rows * hit[..., None].to(rows.dtype)
+
+    out_spec = pspec(*t_spec, None)
+    return shard_map(local, mesh, in_specs=(e_spec, t_spec),
+                     out_specs=out_spec, sum_over=v_axes)(table, tokens)
 
 
 def _encode_frames(params, frames, cfg):
@@ -369,9 +428,14 @@ def _head_matrix(params, cfg):
 def _ce_chunk(h_i, y_i, head, z_loss: float):
     """(sum of the chunk's token losses, its count of valid labels)."""
     logits = (h_i @ head.to(h_i.dtype)).to(torch.float32)
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, y_i.clamp(min=0)[..., None].long())[..., 0]
-    nll = lse - ll
+    logits = constrain(logits, "batch", None, "vocab_act")
+    # the difference is taken before the label dim is dropped: on logits
+    # sharded over the vocabulary the gathered entry is a masked partial
+    # sum, which DTensor reduces only at the gather's own shape
+    lse = torch.logsumexp(logits, dim=-1, keepdim=True)
+    ll = torch.gather(logits, -1, y_i.clamp(min=0)[..., None].long())
+    nll = (lse - ll)[..., 0]
+    lse = lse[..., 0]
     if z_loss:
         nll = nll + z_loss * lse.square()
     valid = y_i >= 0
@@ -392,7 +456,7 @@ def chunked_cross_entropy(h, head, labels, t_chunk: int = 512,
     """
     chunk = _ce_chunk
     if torch.is_grad_enabled():
-        chunk = functools.partial(checkpoint, _ce_chunk, use_reentrant=False)
+        chunk = _checkpoint(_ce_chunk)
     loss_sum = torch.zeros((), dtype=torch.float32, device=h.device)
     n = torch.zeros((), dtype=torch.int64, device=h.device)
     for i in range(0, h.shape[1], t_chunk):
@@ -463,16 +527,22 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None):
 
 def _logits(params, h, cfg):
     h = _norm(h, params, "ln_f")
-    return (h[:, -1] @ _head_matrix(params, cfg).to(h.dtype)).to(torch.float32)
+    logits = (h[:, -1] @ _head_matrix(params, cfg).to(h.dtype)).to(torch.float32)
+    return constrain(logits, "batch", "vocab_act")
 
 
 def prefill(params, batch, cfg: ModelConfig, max_seq: int,
-            q_chunk: int = 1024):
-    """Prompt ingestion. Returns (last-token logits (B,V) float32, cache)."""
+            q_chunk: int = 1024, cache: dict | None = None):
+    """Prompt ingestion. Returns (last-token logits (B,V) float32, cache).
+
+    ``cache``: a fresh cache of ``init_decode_cache``'s tree to fill (on a
+    mesh, distributed by ``launch.steps.cache_shardings``); None makes one.
+    """
     tokens = batch["tokens"]
     b, t = tokens.shape
     dev = params["embed"].device
-    cache, _ = init_decode_cache(cfg, b, max_seq, device=dev)
+    if cache is None:
+        cache, _ = init_decode_cache(cfg, b, max_seq, device=dev)
     h = _embed_tokens(params, tokens)
     fam = cfg.family
     if fam == "vlm":

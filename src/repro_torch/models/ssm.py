@@ -24,7 +24,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import Initializer, layer_norm, rms_norm
+from repro_torch.models.layers import (Initializer, constrain, layer_norm,
+                                       rms_norm)
 
 __all__ = [
     "gla_chunked", "gla_sequential", "gla_step",
@@ -234,10 +235,14 @@ def _rwkv_time_mix(p, xn, xs, cfg):
     mu = p["mu"].to(F32)
     xr, xk, xv, xw, xg = (xn + mu[i] * (xs - xn) for i in range(5))
     shp = xn.shape[:-1]
-    r = (xr @ p["wr"].to(F32)).reshape(*shp, h, RWKV_HEAD)
-    k = (xk @ p["wk"].to(F32)).reshape(*shp, h, RWKV_HEAD)
-    v = (xv @ p["wv"].to(F32)).reshape(*shp, h, RWKV_HEAD)
-    g = xg @ p["wg"].to(F32)
+    wr = constrain(p["wr"], None, "qkv_compute")
+    wk = constrain(p["wk"], None, "qkv_compute")
+    wv = constrain(p["wv"], None, "qkv_compute")
+    wg = constrain(p["wg"], None, "qkv_compute")
+    r = (xr @ wr.to(F32)).reshape(*shp, h, RWKV_HEAD)
+    k = (xk @ wk.to(F32)).reshape(*shp, h, RWKV_HEAD)
+    v = (xv @ wv.to(F32)).reshape(*shp, h, RWKV_HEAD)
+    g = xg @ wg.to(F32)
     lw = -torch.exp(p["w0"].to(F32)
                     + torch.tanh(xw @ p["wa"].to(F32)) @ p["wb"].to(F32))
     return r, k, v, g, lw.reshape(*shp, h, RWKV_HEAD)
@@ -251,15 +256,20 @@ def _rwkv_out(p, wkv, g, cfg, dtype):
     o = ((wkv - mu) * torch.rsqrt(var + 1e-5)).reshape(*b_shape, cfg.d_model)
     o = o * p["gn_w"].to(F32) + p["gn_b"].to(F32)
     o = o * F.silu(g)
-    return (o @ p["wo"].to(F32)).to(dtype)
+    wo = constrain(p["wo"], "qkv_compute", None)
+    return (o @ wo.to(F32)).to(dtype)
 
 
 def _rwkv_channel_mix(p, xn, xs):
     mu = p["mu_c"].to(F32)
     xk = xn + mu[0] * (xs - xn)
     xr = xn + mu[1] * (xs - xn)
-    kk = torch.relu(xk @ p["ck"].to(F32)).square()
-    return torch.sigmoid(xr @ p["cr"].to(F32)) * (kk @ p["cv"].to(F32))
+    ck = constrain(p["ck"], None, "mlp_compute")
+    cv = constrain(p["cv"], "mlp_compute", None)
+    cr = constrain(p["cr"], None, "embed2_compute")
+    kk = torch.relu(xk @ ck.to(F32)).square()
+    kk = constrain(kk, "batch", None, "mlp_act") if kk.ndim == 3 else kk
+    return torch.sigmoid(xr @ cr.to(F32)) * (kk @ cv.to(F32))
 
 
 def _rwkv_block(p, x, cfg, chunk):
@@ -376,7 +386,8 @@ def _mamba_block(p, x, cfg, chunk):
     d, d_in, nh, n, conv_w = _mamba_dims(cfg)
     dtype = x.dtype
     xn = rms_norm(x, p["ln_w"]).to(F32)
-    z, xbc_pre, dt = _mamba_split(xn @ p["in_proj"].to(F32), cfg)
+    zxbcdt = xn @ constrain(p["in_proj"], None, "mlp_compute").to(F32)
+    z, xbc_pre, dt = _mamba_split(zxbcdt, cfg)
     # causal depthwise conv, kernel CONV_K, summed in the reference's order
     pad = torch.zeros((b, CONV_K - 1, conv_w), dtype=F32, device=x.device)
     xpad = torch.cat([pad, xbc_pre], dim=1)
@@ -388,7 +399,8 @@ def _mamba_block(p, x, cfg, chunk):
     y, s_fin = ssd_chunked(xh, a_log_t, Bh, Ch, s0, chunk=min(chunk, t))
     y = y + p["d_skip"].to(F32)[:, None] * xh
     y = _gated_rmsnorm(y.reshape(b, t, d_in), z, p["norm_w"])
-    x = x + (y @ p["out_proj"].to(F32)).to(dtype)
+    wo = constrain(p["out_proj"], "mlp_compute", None)
+    x = x + (y @ wo.to(F32)).to(dtype)
     # the conv state: the last CONV_K - 1 pre-conv inputs
     return x, {"s": s_fin, "conv": xpad[:, -(CONV_K - 1):]}
 

@@ -7,18 +7,24 @@ launch cost must stay out of the number (``graph_ms``); on the CPU with
 ``time.perf_counter``. ``bench_median`` picks between the two by where the
 function's output lies.
 
-The reference's dry-run renderers (``load``, ``roofline_table``,
-``dryrun_table``) read XLA compile records and have no counterpart yet.
+The dry-run renderers (``load``, ``roofline_table``, ``dryrun_table``)
+turn ``launch/dryrun.py``'s JSON records into the reference's tables, the
+same strings for the same records.
+
+Usage:  PYTHONPATH=src python -m repro_torch.perf.report results/dryrun
 """
 from __future__ import annotations
 
+import json
+import pathlib
 import statistics
+import sys
 import time
 
 import torch
 
 __all__ = ["percentile", "latency_summary", "bench_median", "time_ms",
-           "graph_ms"]
+           "graph_ms", "load", "roofline_table", "dryrun_table"]
 
 
 def time_ms(torch, fn, *, warmup=3, reps=10, repeats=5) -> float:
@@ -129,3 +135,84 @@ def latency_summary(xs, prefix: str = "") -> dict:
         f"{p}p95_s": percentile(xs, 95),
         f"{p}max_s": float(max(xs)),
     }
+
+
+def _fmt_s(x: float) -> str:
+    if x == 0:
+        return "0"
+    if x < 1e-4:
+        return f"{x * 1e6:.1f}us"
+    if x < 0.1:
+        return f"{x * 1e3:.2f}ms"
+    return f"{x:.3f}s"
+
+
+def load(dirpath) -> list[dict]:
+    recs = []
+    for p in sorted(pathlib.Path(dirpath).glob("*.json")):
+        recs.append(json.loads(p.read_text()))
+    return recs
+
+
+def roofline_table(recs: list[dict], mesh: str = "16x16") -> str:
+    rows = ["| arch | shape | status | compute | memory | collective | "
+            "bottleneck | useful-FLOPs | peak HBM/chip | fits |",
+            "|---|---|---|---|---|---|---|---|---|---|"]
+    for r in recs:
+        if r.get("mesh") != mesh:
+            continue
+        if r["status"] == "SKIP":
+            rows.append(f"| {r['arch']} | {r['shape']} | SKIP | - | - | - | "
+                        f"{r['reason'][:40]} | - | - | - |")
+            continue
+        if r["status"] != "OK":
+            rows.append(f"| {r['arch']} | {r['shape']} | FAIL | - | - | - | "
+                        f"- | - | - | - |")
+            continue
+        rl = r["roofline"]
+        mem = r["memory"].get("peak_bytes_est", 0) / 2**30
+        rows.append(
+            f"| {r['arch']} | {r['shape']} | OK | {_fmt_s(rl['compute_s'])} | "
+            f"{_fmt_s(rl['memory_s'])} | {_fmt_s(rl['collective_s'])} | "
+            f"**{rl['bottleneck']}** | {rl['useful_flops_ratio']:.2f} | "
+            f"{mem:.1f} GiB | {'Y' if r['fits_hbm'] else 'N'} |")
+    return "\n".join(rows)
+
+
+def dryrun_table(recs: list[dict]) -> str:
+    rows = ["| arch | shape | mesh | compile | HLO flops/dev (raw) | "
+            "analytic flops/dev | coll GB/dev | collectives |",
+            "|---|---|---|---|---|---|---|---|"]
+    for r in recs:
+        if r["status"] != "OK":
+            status = r["status"]
+            reason = r.get("reason", r.get("error", ""))[:40]
+            rows.append(f"| {r['arch']} | {r['shape']} | {r['mesh']} | "
+                        f"{status}: {reason} | - | - | - | - |")
+            continue
+        c = r.get("collectives", {})
+        byop = r.get("collectives_by_op", {})
+        ops = " ".join(f"{k.split('-')[-1]}:{v['count']}"
+                       for k, v in sorted(byop.items()))
+        rows.append(
+            f"| {r['arch']} | {r['shape']} | {r['mesh']} | "
+            f"{r.get('compile_s', '-')}s | "
+            f"{r['cost_hlo_raw'].get('flops', 0):.2e} | "
+            f"{r['analytic']['flops_per_device']:.2e} | "
+            f"{c.get('total_effective_bytes', 0) / 2**30:.1f} | {ops} |")
+    return "\n".join(rows)
+
+
+def main():
+    d = sys.argv[1] if len(sys.argv) > 1 else "results/dryrun"
+    recs = load(d)
+    print("## Roofline (single-pod 16x16, per-device seconds/step)\n")
+    print(roofline_table(recs, "16x16"))
+    print("\n## Roofline (multi-pod 2x16x16)\n")
+    print(roofline_table(recs, "2x16x16"))
+    print("\n## Dry-run detail\n")
+    print(dryrun_table(recs))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,218 @@
+"""Three-term roofline model for the NVIDIA H100 SXM (the reference's
+``repro.perf.roofline``, rebuilt for the card).
+
+  compute term    = FLOPs_per_device / peak FLOP/s (dense bf16)
+  memory term     = HBM bytes_per_device / HBM bandwidth
+  collective term = effective link bytes_per_device / link bandwidth
+
+All three are per-device seconds of one step and directly comparable: the
+largest is the bottleneck. Collective bytes come from records of the
+collectives a step issued, ``(op, result_bytes, group)``, as a
+``TorchDispatchMode`` over the ``_c10d_functional`` ops gives them
+(``record_collectives``), and the reference's ring-algorithm effective-byte
+formulas, op for op:
+
+  all-gather(out S, group g):       S * (g-1)/g
+  reduce-scatter(out S, group g):   S * (g-1)          (input = S*g)
+  all-reduce(out S, group g):       2 * S * (g-1)/g    (RS + AG)
+  all-to-all(out S, group g):       S * (g-1)/g
+  collective-permute(out S):        S                  (broadcast too)
+
+The link rate depends on the group: a group of at most
+``HW["nvlink_domain"]`` GPUs (one HGX board) talks over NVLink, a wider one
+crosses nodes at each GPU's InfiniBand rate.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+__all__ = ["HW", "hbm_bytes", "link_bw", "parse_collectives",
+           "collective_bytes", "record_collectives", "roofline_terms",
+           "model_flops", "RooflineReport"]
+
+HW = {
+    # NVIDIA H100 Tensor Core GPU datasheet, SXM5 column: dense BF16 tensor
+    # core 989.4 TFLOP/s (1979 with sparsity)
+    "peak_flops_bf16": 989e12,
+    # the same datasheet: FP32 on the CUDA cores, 67 TFLOP/s
+    "peak_flops_fp32": 67e12,
+    # the same datasheet: HBM3, 3.35 TB/s
+    "hbm_bw": 3.35e12,
+    # the same datasheet: NVLink 4, 900 GB/s per GPU both ways, 450 each way
+    "nvlink_bw": 450e9,
+    # GPUs that share one NVLink domain (HGX H100 8-GPU board)
+    "nvlink_domain": 8,
+    # ConnectX-7 InfiniBand NDR, 400 Gb/s per GPU: 50 GB/s each way
+    "ib_bw": 50e9,
+    # the same datasheet: 80 GB of HBM3 (hbm_bytes() reads the card's)
+    "hbm_bytes": 80e9,
+}
+
+# op names of the reference's HLO parser, for each functional collective
+_OPS = {
+    "all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all",
+    "broadcast": "collective-permute",
+}
+
+
+def hbm_bytes() -> float:
+    """The card's memory where there is one, else the datasheet's 80 GB."""
+    if torch.cuda.is_available():
+        return float(torch.cuda.get_device_properties(0).total_memory)
+    return HW["hbm_bytes"]
+
+
+def link_bw(group: int) -> float:
+    """Bytes/s each way per GPU for a collective over ``group`` GPUs."""
+    return HW["nvlink_bw"] if group <= HW["nvlink_domain"] else HW["ib_bw"]
+
+
+def _effective(op: str, size: int, g: int) -> float:
+    if op == "all-gather":
+        return size * (g - 1) / max(g, 1)
+    if op == "reduce-scatter":
+        return size * (g - 1)
+    if op == "all-reduce":
+        return 2 * size * (g - 1) / max(g, 1)
+    if op == "all-to-all":
+        return size * (g - 1) / max(g, 1)
+    return size  # collective-permute
+
+
+def parse_collectives(records, trips: dict | None = None) -> list[dict]:
+    """Every collective of ``records``: ``(op, result_bytes, group)`` or the
+    same with a fourth entry, the scope names the op ran under.
+
+    ``trips`` maps scope names to trip counts, as the reference's: a
+    collective recorded once under scope s stands for ``trips[s]`` runs;
+    nested scopes multiply. Ops of size 0 are dropped, as the reference's
+    parser drops them.
+    """
+    out = []
+    for rec in records:
+        op, size, g = rec[0], int(rec[1]), int(rec[2])
+        scope = rec[3] if len(rec) > 3 else ""
+        if size == 0:
+            continue
+        eff = _effective(op, size, g)
+        mult = 1
+        if trips and scope:
+            for s, n in trips.items():
+                if s in scope:
+                    mult *= max(1, int(n))
+        out.append({"op": op, "result_bytes": size, "group": g,
+                    "effective_bytes": eff * mult, "trip_mult": mult})
+    return out
+
+
+def collective_bytes(records, trips: dict | None = None) -> dict:
+    """The reference's per-op sums over ``parse_collectives(records)``, and
+    ``link_s``: each op's effective bytes over its group's link rate."""
+    ops = parse_collectives(records, trips)
+    by_op: dict = {}
+    for o in ops:
+        d = by_op.setdefault(o["op"], {"count": 0, "result_bytes": 0,
+                                       "effective_bytes": 0.0})
+        d["count"] += o["trip_mult"]
+        d["result_bytes"] += o["result_bytes"] * o["trip_mult"]
+        d["effective_bytes"] += o["effective_bytes"]
+    return {
+        "total_effective_bytes": sum(o["effective_bytes"] for o in ops),
+        "n_collective_sites": len(ops),
+        "n_collective_execs": sum(o["trip_mult"] for o in ops),
+        "link_s": sum(o["effective_bytes"] / link_bw(o["group"]) for o in ops),
+        "by_op": by_op,
+    }
+
+
+class _Recorder(TorchDispatchMode):
+    def __init__(self, records):
+        super().__init__()
+        self.records = records
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        pkt = func.overloadpacket
+        if getattr(pkt, "_qualified_op_name", "").startswith(
+                "_c10d_functional::") and pkt.__name__ in _OPS:
+            from torch.distributed.distributed_c10d import \
+                _resolve_process_group
+
+            group = args[-1] if isinstance(args[-1], str) else kwargs.get(
+                "group_name")
+            g = _resolve_process_group(group).size()
+            res = out if isinstance(out, (list, tuple)) else [out]
+            size = sum(t.numel() * t.element_size() for t in res)
+            self.records.append((_OPS[pkt.__name__], size, g))
+        return out
+
+
+@contextlib.contextmanager
+def record_collectives():
+    """Yields a list that fills with ``(op, result_bytes, group)`` for every
+    functional collective dispatched inside the context (DTensor's
+    redistributions and ``torch.distributed._functional_collectives``)."""
+    records: list = []
+    with _Recorder(records):
+        yield records
+
+
+def model_flops(n_params: int, n_tokens: int, kind: str = "train",
+                n_active_params: int | None = None) -> float:
+    """6*N*D for train, 2*N*D per forward (MoE: N = active params)."""
+    n = n_active_params if n_active_params is not None else n_params
+    per_tok = 6.0 * n if kind == "train" else 2.0 * n
+    return per_tok * n_tokens
+
+
+@dataclasses.dataclass
+class RooflineReport:
+    compute_s: float
+    memory_s: float
+    collective_s: float
+    bottleneck: str
+    flops_per_device: float
+    bytes_per_device: float
+    coll_bytes_per_device: float
+    model_flops_total: float
+    useful_flops_ratio: float  # MODEL_FLOPS / (FLOPs * n_devices)
+
+    def as_dict(self):
+        return dataclasses.asdict(self)
+
+
+def roofline_terms(flops_per_device: float, bytes_per_device: float,
+                   coll_bytes_per_device: float, *, n_devices: int,
+                   model_flops_total: float = 0.0,
+                   extra_flops: float = 0.0,
+                   extra_bytes: float = 0.0,
+                   group: int | None = None,
+                   collective_s: float | None = None) -> RooflineReport:
+    """The three terms of one step.
+
+    The collective term is ``collective_s`` when given (``collective_bytes``'s
+    ``link_s``, each op at its own group's rate), else the bytes over the
+    link rate of ``group`` GPUs (``n_devices`` when None).
+    """
+    f = flops_per_device + extra_flops
+    by = bytes_per_device + extra_bytes
+    c = f / HW["peak_flops_bf16"]
+    m = by / HW["hbm_bw"]
+    if collective_s is None:
+        collective_s = coll_bytes_per_device / link_bw(
+            n_devices if group is None else group)
+    terms = {"compute": c, "memory": m, "collective": collective_s}
+    bottleneck = max(terms, key=terms.get)
+    ratio = (model_flops_total / (f * n_devices)) if f > 0 else 0.0
+    return RooflineReport(c, m, collective_s, bottleneck, f, by,
+                          coll_bytes_per_device, model_flops_total, ratio)

@@ -203,7 +203,8 @@ def test_dispatch_exempts_kernels_api_and_tests(tmp_path):
 
 def test_registry_has_the_ported_rules():
     assert [r.name for r in ALL_RULES] == [
-        "kernel-int-purity", "bench-timer-sync", "api-dispatch-bypass",
+        "kernel-int-purity", "sharding-spec-layering",
+        "sharding-axis-declared", "bench-timer-sync", "api-dispatch-bypass",
         "serve-chaos-harness", "policy-grid"]
     with pytest.raises(KeyError, match="unknown lint rule"):
         get_rule("serve-jit-static")

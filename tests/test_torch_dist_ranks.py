@@ -1,0 +1,552 @@
+"""The port's dist layer on 4 gloo ranks (a (2, 2) ``("data", "model")``
+mesh), against the reference and the port's unsharded path in this process.
+
+One session of 4 spawned ranks (a ``file://`` rendezvous in ``tmp_path``, no
+TCP port, one torch thread a rank, a join timeout of 120 s) runs every case
+and writes each rank's results; the tests read them:
+
+- ``compressed_psum_mean`` over the 4 ranks against the reference's under
+  ``jax.vmap(axis_name="data")``, op by op, on the same ``default_rng``
+  inputs, at 8 and 4 bits, 20 rounds of error feedback: mean and residual
+  bit-equal;
+- codeqwen1.5-7b smoke (float32) ``loss_and_grads`` with DTensor
+  parameters under the train rules: the loss within 1e-5 of the port's
+  unsharded loss and 1e-4 of the reference's on the same parameters, and
+  every gradient leaf within 1e-5 of the unsharded one, relative to the
+  leaf's norm and, element by element, to its largest element; the same
+  gradients with ``remat`` "full" and "dots", whose recomputation in
+  backward runs in the forward's shard context;
+- ``optimizer.compress_grads`` (``launch/train.py --grad-compress-bits``)
+  on those sharded gradients: the int8 values, scales and residuals
+  bit-equal to the unsharded compression of the gathered gradients (each
+  leaf's scale is its global max-abs);
+- minitron-8b smoke, zero3 rules, ``n_micro`` 2: the step's accumulated
+  gradients (``accumulated_grads``) leaf by leaf against the unsharded
+  ones at the same 1e-5, and one ``make_train_step`` step (clip 1.0,
+  weight decay 0.1): its loss within 1e-5 of the unsharded step's, and its
+  updated parameters within 1e-6 (relative to each leaf's largest element)
+  of AdamW applied, unsharded, to the gathered sharded gradients. The
+  parameters are not held to the unsharded step's: one Adam step moves an
+  element by about lr whatever its gradient's size, so elements whose
+  gradient is at float noise land up to 2 lr apart.
+
+The gradient checks see the sharded backward: the partial sums that the
+per-rank attention core and the vocab-parallel embedding hand back
+(``shard_map``'s gradient placements), zero3's reduce-scatters and the
+accumulation over DTensor microbatches. With the data-axis sum of
+``shard_map``'s gradients dropped (``distinct`` false for "data", so an
+input replicated over "data" keeps each rank's own gradient; a mutation
+run on a copy of the package), both gradient tests fail on the embedding
+(its largest element off by 0.31 of 0.52 for codeqwen, 0.35 of 0.43 for
+minitron), and so does the MoE test's router gradient; the loss tests
+still pass.
+- minitron-8b smoke (float32, 4 heads) prefill and 3 decode steps with
+  DTensor parameters and cache under the serve rules, with 2 kv heads (they
+  split over "model" as the query heads do: the grouped product, K/V not
+  repeated) and with 1 (it does not divide "model", so
+  ``cache_shardings`` moves "model" onto the cache's sequence: split-KV,
+  each rank attends over its own positions and the softmax's max and sum
+  are reduced): logits within 1e-5 of the unsharded decode, relative to
+  their largest element; under split-KV the cache stays sequence-sharded
+  and no decode step gathers it (no all-gather a step as large as one
+  layer's K cache);
+- olmoe-1b-7b smoke: ``moe`` through the expert-parallel branch (its
+  ``use_sm`` true, taken once), output and the gradients of a weighted sum
+  within 1e-5 of the single-device ``moe``;
+- the GNN int forward under ``shard_ctx`` on the CPU's plain version: logits
+  bit-equal to the forward without a context.
+
+The child processes import no JAX: the module imports it only inside the
+tests.
+"""
+import dataclasses
+import multiprocessing
+import pathlib
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+WORLD = 4
+TIMEOUT_S = 120
+CPSUM_BITS = (8, 4)
+ROUNDS = 20
+GRAD_RTOL = 1e-5
+REMATS = ("full", "dots")
+PARAM_RTOL = 1e-6
+
+
+def _opt():
+    from repro_torch.train import optimizer as opt
+
+    return opt.AdamWConfig(lr=1e-3, weight_decay=0.1, grad_clip=1.0)
+
+
+def _smoke(arch, **kw):
+    from repro_torch import configs
+    from repro_torch.configs.base import smoke_config
+
+    return dataclasses.replace(smoke_config(configs.get(arch)),
+                               dtype="float32", **kw)
+
+
+def _cpsum_inputs():
+    """Each rank's gradient, the same every round (as the reference's
+    error-feedback test)."""
+    rng = np.random.default_rng(0)
+    return (rng.normal(size=(WORLD, 16, 64)) * 3).astype(np.float32)
+
+
+def _moe_inputs(cfg):
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(8, 32, cfg.d_model)).astype(np.float32)
+    w = rng.normal(size=(8, 32, cfg.d_model)).astype(np.float32)
+    return torch.from_numpy(x), torch.from_numpy(w)
+
+
+def _gnn_setup():
+    """A small proteins batch's int-path artifacts and GCN parameters."""
+    from repro_torch import configs
+    from repro_torch.graph import partition
+    from repro_torch.graph.datasets import load
+    from repro_torch.models import gnn
+    from repro_torch.train import intpath, trainer
+
+    data = load("proteins", scale=0.01, seed=0)
+    parts = partition.partition(data.csr, 8)
+    cfg = dataclasses.replace(configs.get("qgtc-gcn"),
+                              in_dim=data.features.shape[1],
+                              n_classes=int(data.labels.max()) + 1)
+    batches = trainer.prepare_batches(data, parts, batch_size=4)
+    bp, rp = intpath.batch_caps(batches)
+    art = intpath.ArtifactCache(cfg.x_bits, block_pad=bp, rem_pad=rp,
+                                device="cpu").get(batches[0])
+    params = gnn.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                             device="cpu")
+    return cfg, params, art
+
+
+def _rank_main(rank, store_dir, cases):
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{store_dir}/rdv",
+                            rank=rank, world_size=WORLD)
+    from repro_torch.dist import collectives
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import gnn, lm
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optimizer as opt
+
+    out = {}
+    xs = torch.from_numpy(_cpsum_inputs())
+    for nbits in CPSUM_BITS:
+        err, got = None, []
+        for r in range(ROUNDS):
+            mean, err = collectives.compressed_psum_mean(xs[rank], None,
+                                                         nbits=nbits, err=err)
+            got.append((mean, err))
+        out[f"cpsum{nbits}"] = got
+
+    mesh = make_local_mesh(model=2, device="cpu")
+    assert dict(zip(mesh.mesh_dim_names, mesh.shape)) == {"data": 2,
+                                                          "model": 2}
+
+    def full(x):
+        return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+    def on_mesh(cfg, params, axes, batch, rules):
+        p = steps.distribute(params, steps.param_shardings(mesh, rules, axes,
+                                                           params))
+        b_sh = steps.batch_shardings(cfg, mesh, rules)
+        return p, steps.distribute(batch, {k: b_sh[k] for k in batch})
+
+    def gathered(tree):
+        return opt.tree_map(lambda t: full(t).detach(), tree)
+
+    # codeqwen: the loss and its gradients with DTensor parameters
+    cq = cases["codeqwen"]
+    rules = shd.make_rules("train")
+    p, b = on_mesh(cq["cfg"], cq["params"], cq["axes"], cq["batch"], rules)
+    with steps.sharded(mesh, rules):
+        loss, _, grads = steps.loss_and_grads(p, b, cq["cfg"])
+    out["codeqwen_loss"] = full(loss).item()
+    out["codeqwen_grads"] = gathered(grads)
+    for remat in REMATS:  # the recomputation in backward on the mesh
+        with steps.sharded(mesh, rules):
+            _, _, g = steps.loss_and_grads(
+                p, b, dataclasses.replace(cq["cfg"], remat=remat))
+        out[f"codeqwen_grads_{remat}"] = gathered(g)
+    # the launcher's --grad-compress-bits on DTensor gradients
+    with steps.sharded(mesh, rules):
+        q, scales, cst = opt.compress_grads(grads, opt.compression_init(grads),
+                                            nbits=8)
+    out["compressed"] = (gathered(q), gathered(scales),
+                         gathered(cst.residual))
+
+    # minitron: zero3 with 2 microbatches, the gradients and one step
+    mt = cases["minitron"]
+    rules = shd.make_rules("train", zero3=True)
+    p, b = on_mesh(mt["cfg"], mt["params"], mt["axes"], mt["batch"], rules)
+    with steps.sharded(mesh, rules):
+        _, _, grads = steps.accumulated_grads(p, b, mt["cfg"], n_micro=2)
+    grads = gathered(grads)
+    out["minitron_grads"] = grads
+    plain = gathered(p)
+    out["minitron_params_from_grads"], _ = opt.adamw_update(
+        plain, grads, opt.adamw_init(plain), _opt())
+    step = steps.make_train_step(mt["cfg"], _opt(), n_micro=2)
+    with steps.sharded(mesh, rules):
+        p, ostate, metrics = step(p, opt.adamw_init(p), b)
+    out["minitron_loss"] = full(metrics["loss"]).item()
+    out["minitron_params"] = gathered(p)
+
+    # minitron decode: GQA without repeat, and split-KV
+    for name, case in cases["decode"].items():
+        out[f"decode_{name}"] = _decode_on_mesh(mesh, shd.make_rules("serve"),
+                                                case)
+
+    # olmoe: the expert-parallel moe and its gradients
+    mo = cases["olmoe"]
+    rules = shd.make_rules("train")
+    taken = []
+    ep = T._moe_expert_parallel
+
+    def counted(*a, **kw):
+        taken.append(1)
+        return ep(*a, **kw)
+
+    T._moe_expert_parallel = counted
+    try:
+        p = steps.distribute(mo["params"], steps.param_shardings(
+            mesh, rules, mo["axes"], mo["params"]))
+        p = opt.tree_map(lambda t: t.detach().requires_grad_(), p)
+        x_sh = shd.NamedSharding(mesh, shd.pspec("data", None, None))
+        x = x_sh.distribute(mo["x"]).detach().requires_grad_()
+        w = x_sh.distribute(mo["w"])
+        with steps.sharded(mesh, rules):
+            y = T.moe(p, x, mo["cfg"])
+            (y * w).sum().backward()
+    finally:
+        T._moe_expert_parallel = ep
+    out["moe_taken"] = len(taken)
+    out["moe_out"] = full(y).detach()
+    out["moe_grads"] = {"x": full(x.grad),
+                        **{k: full(v.grad) for k, v in p.items()}}
+
+    # the GNN int forward under a context, on the plain version
+    cfg, params, art = _gnn_setup()
+    with torch.no_grad():
+        want = gnn.forward_int(params, art, cfg)
+        with shd.shard_ctx(mesh, shd.make_rules("train")):
+            got = gnn.forward_int(params, art, cfg)
+    out["gnn"] = (want, got)
+
+    # a DTensor never reaches a kernel: every wrapper asks kernel_device
+    from repro_torch.kernels import _build
+
+    a = torch.zeros((1, 8, 1), dtype=torch.int32)
+    a_d = shd.NamedSharding(mesh, shd.pspec(None, "data", None)).distribute(a)
+    try:
+        _build.kernel_device(a_d, a)
+        out["dtensor_refused"] = False
+    except TypeError as e:
+        out["dtensor_refused"] = "DTensor" in str(e)
+
+    torch.save(out, f"{store_dir}/rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+DECODE = dict(batch=4, prompt=8, max_seq=16, steps=3)
+
+
+def _decode_tokens(cfg):
+    rng = np.random.default_rng(4)
+    toks = rng.integers(0, cfg.vocab, size=(DECODE["batch"],
+                                            DECODE["prompt"]
+                                            + DECODE["steps"]))
+    return torch.from_numpy(toks.astype(np.int32))
+
+
+def _decode(params, cfg, cache=None):
+    """Prefill's logits and each decode step's, and the cache."""
+    from repro_torch.models import lm
+
+    toks = _decode_tokens(cfg)
+    p = DECODE["prompt"]
+    logits, cache = lm.prefill(params, {"tokens": toks[:, :p]}, cfg,
+                               max_seq=DECODE["max_seq"], cache=cache)
+    out = [logits]
+    for i in range(DECODE["steps"]):
+        logits, cache = lm.decode_step(params, cache, toks[:, p + i:p + i + 1],
+                                       cfg)
+        out.append(logits)
+    return out, cache
+
+
+def _decode_on_mesh(mesh, rules, case):
+    """``_decode`` with DTensor parameters and cache: the logits, the
+    cache's K spec and each decode step's all-gather result bytes."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.perf import roofline
+
+    cfg = case["cfg"]
+    p = steps.distribute(case["params"], steps.param_shardings(
+        mesh, rules, case["axes"], case["params"]))
+    c_shapes, c_axes = lm.init_decode_cache(cfg, DECODE["batch"],
+                                            DECODE["max_seq"], device="cpu")
+    cache = steps.distribute(c_shapes, steps.cache_shardings(
+        mesh, rules, c_axes, c_shapes))
+    tok_sh = shd.NamedSharding(mesh, shd.pspec(rules["batch"], None))
+    toks = tok_sh.distribute(_decode_tokens(cfg))
+    n = DECODE["prompt"]
+    with torch.no_grad(), steps.sharded(mesh, rules):
+        logits, cache = lm.prefill(p, {"tokens": toks[:, :n]}, cfg,
+                                   max_seq=DECODE["max_seq"], cache=cache)
+        out, gathers = [logits.full_tensor()], []
+        for i in range(DECODE["steps"]):
+            with roofline.record_collectives() as rec:
+                logits, cache = lm.decode_step(
+                    p, cache, toks[:, n + i:n + i + 1], cfg)
+            out.append(logits.full_tensor())
+            gathers.append([b for op, b, _ in rec if op == "all-gather"])
+    k = cache["layers"]["self"]["k"]
+    return {"logits": out, "k_spec": tuple(shd.spec_of(k)),
+            "k_layer_bytes": k[0].numel() * k.element_size(),
+            "gathers": gathers}
+
+
+def _cases():
+    """Parameters and inputs for the ranks, from seeds, with the
+    reference's codeqwen loss and the port's unsharded results."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro import configs as jconfigs
+    from repro.models import lm as jlm
+    from repro_torch import convert
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.models import transformer as T
+    from repro_torch.train import data
+    from repro_torch.train import optimizer as opt
+
+    cases, want = {}, {}
+    cfg = _smoke("codeqwen1.5-7b")
+    jcfg = jconfigs.ModelConfig(**dataclasses.asdict(cfg))
+    jparams, _ = jlm.init_lm(jax.random.PRNGKey(0), jcfg)
+    params = convert.lm_params_from_jax(jax.tree.map(np.asarray, jparams),
+                                        device="cpu")
+    _, axes = lm.init_lm(cfg, device="meta")
+    batch = data.batch_for_arch(cfg, 0, 0, 8, 32, device="cpu")
+    jloss, _ = jax.jit(lambda p, b: jlm.lm_loss(p, b, jcfg))(
+        jparams, {k: jnp.asarray(v.numpy()) for k, v in batch.items()})
+    loss, _, want["codeqwen_grads"] = steps.loss_and_grads(params, batch, cfg)
+    want["codeqwen"] = loss.item()
+    want["codeqwen_ref"] = float(jloss)
+    cases["codeqwen"] = dict(cfg=cfg, params=params, axes=axes, batch=batch)
+
+    cfg = _smoke("minitron-8b")
+    params, axes = lm.init_lm(cfg, torch.Generator().manual_seed(1),
+                              device="cpu")
+    batch = data.batch_for_arch(cfg, 0, 0, 8, 32, device="cpu")
+    cases["minitron"] = dict(cfg=cfg, params=opt.tree_map(torch.clone, params),
+                             axes=axes, batch=batch)
+    _, _, want["minitron_grads"] = steps.accumulated_grads(params, batch, cfg,
+                                                          n_micro=2)
+    step = steps.make_train_step(cfg, _opt(), n_micro=2)
+    _, _, m = step(params, opt.adamw_init(params), batch)
+    want["minitron"] = m["loss"].item()
+
+    cases["decode"], want["decode"] = {}, {}
+    for name, n_kv in (("gqa", 2), ("split_kv", 1)):
+        cfg = _smoke("minitron-8b", n_kv_heads=n_kv)
+        params, axes = lm.init_lm(cfg, torch.Generator().manual_seed(3),
+                                  device="cpu")
+        cases["decode"][name] = dict(cfg=cfg, params=params, axes=axes)
+        with torch.no_grad():
+            want["decode"][name], _ = _decode(params, cfg)
+
+    cfg = _smoke("olmoe-1b-7b")
+    params, axes = lm.init_lm(cfg, torch.Generator().manual_seed(2),
+                              device="cpu")
+    mp = {k: v[0].clone() for k, v in params["layers"]["moe"].items()}
+    max_ = {k: v[1:] for k, v in axes["layers"]["moe"].items()}
+    x, w = _moe_inputs(cfg)
+    cases["olmoe"] = dict(cfg=cfg, params=mp, axes=max_, x=x, w=w)
+    p = opt.tree_map(lambda t: t.clone().requires_grad_(), mp)
+    xg = x.clone().requires_grad_()
+    y = T.moe(p, xg, cfg)
+    (y * w).sum().backward()
+    want["moe_out"] = y.detach()
+    want["moe_grads"] = {"x": xg.grad, **{k: v.grad for k, v in p.items()}}
+    return cases, want
+
+
+@pytest.fixture(scope="module")
+def session(tmp_path_factory):
+    store = tmp_path_factory.mktemp("ranks")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        cases, want = _cases()
+    finally:
+        torch.set_num_threads(threads)
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_rank_main, args=(r, str(store), cases))
+             for r in range(WORLD)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(TIMEOUT_S)
+    alive = [p for p in procs if p.is_alive()]
+    for p in alive:
+        p.kill()
+        p.join()
+    assert not alive, f"{len(alive)} ranks still running after {TIMEOUT_S} s"
+    assert [p.exitcode for p in procs] == [0] * WORLD
+    got = [torch.load(pathlib.Path(store) / f"rank{r}.pt", weights_only=False)
+           for r in range(WORLD)]
+    return got, want
+
+
+@pytest.mark.parametrize("nbits", CPSUM_BITS)
+def test_compressed_psum_mean_is_bit_equal_to_the_reference(session, nbits):
+    import jax
+    import jax.numpy as jnp
+
+    from repro.dist.collectives import compressed_psum_mean as jcpsum
+
+    got, _ = session
+    xs = _cpsum_inputs()
+    # op by op: jitted, XLA contracts the residual v - q * scale into one
+    # fma, which rounds once where both packages' ops round twice
+    fn = jax.vmap(lambda x, e: jcpsum(x, "data", nbits=nbits, err=e),
+                  axis_name="data")
+    err = jnp.zeros(xs.shape, jnp.float32)
+    acc_q = np.zeros(xs.shape[1:], np.float64)
+    for r in range(ROUNDS):
+        mean, err = fn(jnp.asarray(xs), err)
+        mean, res = np.asarray(mean), np.asarray(err)
+        for rank in range(WORLD):
+            m, e = got[rank][f"cpsum{nbits}"][r]
+            np.testing.assert_array_equal(m.numpy(), mean[rank])
+            np.testing.assert_array_equal(e.numpy(), res[rank])
+        acc_q += got[0][f"cpsum{nbits}"][r][0].numpy()
+    # error feedback keeps the accumulated stream unbiased: the reference's
+    # bound for its 8-bit test, scaled by the quantization step at 4 bits
+    acc_f = ROUNDS * xs.astype(np.float64).mean(axis=0)
+    rel = np.linalg.norm(acc_q - acc_f) / np.linalg.norm(acc_f)
+    assert rel < 1e-3 * 127 / ((1 << (nbits - 1)) - 1), rel
+
+
+def _close_leaves(got, want, rtol, *, norm=True):
+    """Leaf by leaf: ``|got - want|`` within ``rtol`` of the leaf's largest
+    element and (``norm``) ``||got - want||`` within ``rtol`` of its
+    norm."""
+    from repro_torch.dist.checkpoint import _leaves
+
+    a_l, b_l = _leaves(got), _leaves(want)
+    assert len(a_l) == len(b_l)
+    for i, (a, b) in enumerate(zip(a_l, b_l)):
+        assert a.shape == b.shape and torch.isfinite(a).all(), i
+        d = (a - b).abs()
+        assert d.max() <= rtol * b.abs().max(), (i, d.max(), b.abs().max())
+        if norm:
+            assert d.norm() <= rtol * b.norm(), (i, d.norm(), b.norm())
+
+
+def test_sharded_codeqwen_loss_matches_unsharded_and_reference(session):
+    got, want = session
+    for rank in range(WORLD):
+        loss = got[rank]["codeqwen_loss"]
+        assert abs(loss - want["codeqwen"]) <= 1e-5 * abs(want["codeqwen"])
+        assert abs(loss - want["codeqwen_ref"]) <= \
+            1e-4 * abs(want["codeqwen_ref"])
+
+
+@pytest.mark.parametrize("remat", ("none",) + REMATS)
+def test_sharded_codeqwen_gradients_match_unsharded(session, remat):
+    got, want = session
+    key = "codeqwen_grads" + ("" if remat == "none" else f"_{remat}")
+    for rank in range(WORLD):
+        _close_leaves(got[rank][key], want["codeqwen_grads"], GRAD_RTOL)
+
+
+def test_sharded_gradient_compression_is_bit_equal(session):
+    from repro_torch.dist.checkpoint import _leaves
+    from repro_torch.train import optimizer as opt
+
+    got, _ = session
+    for rank in range(WORLD):
+        grads = got[rank]["codeqwen_grads"]
+        q, s, cst = opt.compress_grads(grads, opt.compression_init(grads),
+                                       nbits=8)
+        for a, b in zip(_leaves(got[rank]["compressed"]),
+                        _leaves((q, s, cst.residual)), strict=True):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_zero3_microbatched_gradients_match_unsharded(session):
+    got, want = session
+    for rank in range(WORLD):
+        _close_leaves(got[rank]["minitron_grads"], want["minitron_grads"],
+                      GRAD_RTOL)
+
+
+def test_zero3_microbatched_step_matches_the_unsharded_step(session):
+    got, want = session
+    for rank in range(WORLD):
+        loss = got[rank]["minitron_loss"]
+        assert abs(loss - want["minitron"]) <= 1e-5 * abs(want["minitron"])
+        # the sharded update is AdamW (clip, decay) on the sharded grads
+        _close_leaves(got[rank]["minitron_params"],
+                      got[rank]["minitron_params_from_grads"], PARAM_RTOL,
+                      norm=False)
+
+
+@pytest.mark.parametrize("case", ["gqa", "split_kv"])
+def test_sharded_decode_matches_unsharded(session, case):
+    got, want = session
+    for rank in range(WORLD):
+        d = got[rank][f"decode_{case}"]
+        for a, b in zip(d["logits"], want["decode"][case], strict=True):
+            assert (a - b).abs().max() <= 1e-5 * b.abs().max()
+        if case == "split_kv":
+            # (layers, batch, seq, kv heads, head dim): seq over "model"
+            assert d["k_spec"] == (None, "data", "model", None, None)
+            assert all(b < d["k_layer_bytes"] for g in d["gathers"]
+                       for b in g), d["gathers"]
+
+
+def test_expert_parallel_moe_matches_single_device(session):
+    got, want = session
+    scale = want["moe_out"].abs().max()
+    for rank in range(WORLD):
+        assert got[rank]["moe_taken"] == 1
+        assert (got[rank]["moe_out"] - want["moe_out"]).abs().max() \
+            <= 1e-5 * scale
+        for k, g in want["moe_grads"].items():
+            assert (got[rank]["moe_grads"][k] - g).abs().max() <= \
+                1e-5 * g.abs().max(), k
+
+
+def test_gnn_int_forward_under_a_context_is_bit_equal(session):
+    got, _ = session
+    for rank in range(WORLD):
+        want, under = got[rank]["gnn"]
+        assert torch.equal(want, under)
+        assert got[rank]["dtensor_refused"]
+    assert torch.equal(got[0]["gnn"][0], got[WORLD - 1]["gnn"][0])
+
+
+def test_the_ranks_import_no_jax():
+    # the ranks import this module: its top level imports no JAX
+    src = pathlib.Path(__file__).read_text()
+    head = src[:src.index("def _smoke")]
+    assert "import jax" not in head and "from repro." not in head
