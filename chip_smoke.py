@@ -224,10 +224,29 @@ without printing a result:
      relative to the leaf's largest element; compressed_psum_mean over NCCL bit-equal to the local round
      trip, 3 rounds of error feedback; forward_int of qgtc-gcn under
      shard_ctx bit-equal to the forward without a context, through
-     bitserial_gemm (these launches join the kernels line). (b)
-     launch/dryrun.py as four subprocesses (codeqwen1.5-7b x train_4k and
-     decode_32k on the fake 16x16 and 2x16x16 groups), every cell OK, the
-     report's roofline and dry-run tables printed.
+     bitserial_gemm (these launches join the kernels line); rwkv6-1.6b at
+     full width (d_model 2048, 32 heads) with depth cut to 2 layers, in
+     float32, sequence 256 (8 chunks of the scan): the same gradients and
+     train step, whose chunked scan runs per rank in its chunk-batched
+     form (models/ssm.py _scan), held within 1e-6 to the plain step run
+     with that form; the plain model with the scan's two forms (the loop
+     over chunks and the batched one, float32 reassociations of each
+     other): hidden states within 1e-5 of their largest element, every
+     gradient within 1e-4 of its leaf's norm; and each form of the GLA
+     (rwkv6's shapes) and SSD (zamba2's) scans against the loop form in
+     float64, within 5e-5, the batched no further than twice the loop. (b)
+     launch/dryrun.py as seven subprocesses (codeqwen1.5-7b x train_4k
+     and decode_32k on the fake 16x16 and 2x16x16 groups; whisper-large-v3
+     x train_4k, rwkv6-1.6b x prefill_32k and zamba2-7b x prefill_32k on
+     16x16), every cell OK, the report's roofline and dry-run tables
+     printed.
+
+  20. Quickstart — ``python -m repro_torch.examples.quickstart`` as a
+     subprocess on the card: the §5 tour (to_bit and bitpack, bitmm2int
+     and bitmm2bit with and without the fused epilogue, every engine
+     exact, bgemm with zero-tile jumping) must exit 0 ending in OK.
+
+Each phase prints its seconds when it ends (``phase_seconds`` lines).
 
 Phases 1-14 run with tuning off (tune.use_table(None)), so that they hold
 what they held before a table was packaged: the tuned path is measured in
@@ -242,6 +261,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import io
 import itertools
@@ -3555,7 +3575,25 @@ DIST_TRAIN = dict(batch=8, seq=32, lr=1e-3)
 DIST_TOL = 1e-6
 DIST_CPSUM_ROUNDS = 3
 DIST_GNN = dict(dataset="proteins", scale=0.01, parts=8, batch_size=4)
-DIST_DRYRUN = (("codeqwen1.5-7b", "train_4k"), ("codeqwen1.5-7b", "decode_32k"))
+# (arch, shape, meshes): 16x16, and 2x16x16 with --multi-pod
+DIST_DRYRUN = (("codeqwen1.5-7b", "train_4k", ([], ["--multi-pod"])),
+               ("codeqwen1.5-7b", "decode_32k", ([], ["--multi-pod"])),
+               ("whisper-large-v3", "train_4k", ([],)),
+               ("rwkv6-1.6b", "prefill_32k", ([],)),
+               ("zamba2-7b", "prefill_32k", ([],)))
+# rwkv6 at full width: the per-rank scan on the card (8 chunks of 32)
+DIST_SCAN_ARCH = "rwkv6-1.6b"
+DIST_SCAN_TRAIN = dict(batch=4, seq=256, lr=1e-3)
+# the scan's two forms (the loop over chunks, the chunk-batched per-rank
+# one) are float32 reassociations of each other; on the card cuBLAS sums
+# their batched products in other orders: the model's hidden states within
+# this bound of their largest element, its gradients of their leaf's norm
+DIST_SCAN_FORMS_TOL = dict(hidden=1e-5, grads_norm=1e-4)
+# each form against the loop form in float64 on the same float32 inputs
+# (B, T, H, K|P[, N]) at the layers' own shapes: within this bound of the
+# largest element, the batched form no further than twice the loop's
+DIST_SCAN_F64 = dict(gla=(4, 256, 32, 64), ssd=(2, 256, 112, 64, 64),
+                     tol=5e-5)
 # a cell's step budget on the host: DTensor plans each distinct (op,
 # placements) once, minutes on the 3-D mesh for an op it must plan with its
 # graph search; every cell must be OK within it
@@ -3564,6 +3602,23 @@ DIST_CELL_TIMEOUT_S = 240
 
 def _dist_full(x):
     return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
+def _dist_leaf_err(torch, got, want) -> float:
+    """The largest |got - want| of any leaf over that leaf's largest |want|
+    (computed on the card: the leaves are GBs)."""
+    from repro_torch.train import optimizer as opt
+
+    err = 0.0
+    for i, (a, b) in enumerate(zip(opt.tree_leaves(want),
+                                   opt.tree_leaves(got), strict=True)):
+        b = _dist_full(b).detach()
+        if type(a) is not torch.Tensor or type(b) is not torch.Tensor:
+            raise AssertionError(f"leaf {i}: {type(a).__name__} "
+                                 f"against {type(b).__name__}")
+        err = max(err, float((b - a).abs().max()
+                             / a.abs().max().clamp(min=1e-12)))
+    return err
 
 
 def _dist_train_step(torch, mesh, card):
@@ -3594,18 +3649,7 @@ def _dist_train_step(torch, mesh, card):
         raise AssertionError("the sharded parameters are not DTensors on "
                              "the card")
 
-    def leaf_err(got, want):  # on the card: the leaves are GBs
-        err = 0.0
-        for i, (a, b) in enumerate(zip(opt.tree_leaves(want),
-                                       opt.tree_leaves(got), strict=True)):
-            b = _dist_full(b).detach()
-            if type(a) is not torch.Tensor or type(b) is not torch.Tensor:
-                raise AssertionError(f"leaf {i}: {type(a).__name__} "
-                                     f"against {type(b).__name__}")
-            err = max(err, float((b - a).abs().max()
-                                 / a.abs().max().clamp(min=1e-12)))
-        return err
-
+    leaf_err = functools.partial(_dist_leaf_err, torch)
     _, _, g1 = steps.loss_and_grads(params, batch, cfg)
     with steps.sharded(mesh, rules):
         _, _, g2 = steps.loss_and_grads(ps, bs, cfg)
@@ -3640,6 +3684,145 @@ def _dist_train_step(torch, mesh, card):
          grads_max_rel_err=g_err, params_max_rel_err=p_err,
          tolerance=DIST_TOL, step_s=sharded_s, step_unsharded_s=plain_s,
          peak_memory_gb=peak, card=card)
+
+
+def _dist_scan_forms_f64(torch) -> dict:
+    """The scan's loop and chunk-batched forms in float32 against the loop
+    form in float64, on inputs drawn at the layers' shapes: rwkv6's GLA
+    (8 chunks of 32) and zamba2's SSD (2 chunks of 128, B and C of one
+    group)."""
+    from repro_torch.models import ssm
+
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+
+    def draw(*shape, decay=False):
+        x = torch.randn(shape, generator=gen, device=DEVICE)
+        return -torch.exp(x) if decay else x
+
+    def rel(a, b):
+        return float((a.double() - b).abs().max() / b.abs().max())
+
+    b, t, h, k = DIST_SCAN_F64["gla"]
+    gla = (draw(b, t, h, k), draw(b, t, h, k), draw(b, t, h, k),
+           draw(b, t, h, k, decay=True), draw(h, k), draw(b, h, k, k))
+    b, t, h, p, n = DIST_SCAN_F64["ssd"]
+    ssd = (draw(b, t, h, p), draw(b, t, h, decay=True), draw(b, t, n),
+           draw(b, t, n), draw(b, h, n, p))
+    out = {}
+    for name, loop, batched, args, chunk in (
+            ("gla", ssm.gla_chunked, ssm.gla_chunks_batched, gla, 32),
+            ("ssd", ssm._ssd_grouped, ssm.ssd_chunks_batched, ssd, 128)):
+        want = loop(*[a.double() for a in args], chunk)[0]
+        out[name] = dict(loop=rel(loop(*args, chunk)[0], want),
+                         batched=rel(batched(*args, chunk)[0], want))
+    return out
+
+
+def _dist_scan_step(torch, mesh, card):
+    """(a) rwkv6-1.6b at full width, depth cut to 2 layers, float32: the
+    gradients and one train step with DTensor parameters, whose chunked
+    scan runs per rank in its chunk-batched form, against the plain ones
+    run with that form (the same ops on a world of one: expected 0); the
+    plain model's hidden states and gradients with the two scan forms
+    against each other; each form against float64."""
+    from repro_torch import configs
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.models import lm, ssm
+    from repro_torch.train import data
+    from repro_torch.train import optimizer as opt
+
+    tr = DIST_SCAN_TRAIN
+    cfg = dataclasses.replace(configs.get(DIST_SCAN_ARCH), dtype="float32",
+                              n_layers=2)
+    params, axes = lm.init_lm(cfg, torch.Generator(device=DEVICE)
+                              .manual_seed(0), device=DEVICE)
+    batch = data.batch_for_arch(cfg, 0, 0, tr["batch"], tr["seq"],
+                                device=DEVICE)
+    rules = shd.make_rules("train")
+    ps = steps.distribute(opt.tree_map(torch.clone, params),
+                          steps.param_shardings(mesh, rules, axes, params))
+    b_sh = steps.batch_shardings(cfg, mesh, rules)
+    bs = steps.distribute(batch, {k: b_sh[k] for k in batch})
+    leaf_err = functools.partial(_dist_leaf_err, torch)
+    loop_scan, batched = ssm._scan, ssm.gla_chunks_batched
+    per_rank = []
+
+    def counted(*a, **kw):
+        per_rank.append(1)
+        return batched(*a, **kw)
+
+    @contextlib.contextmanager
+    def batched_form():  # the plain step with the per-rank scan's form
+        ssm._scan = lambda plain, pr, args, names, state_at: pr(*args)
+        try:
+            yield
+        finally:
+            ssm._scan = loop_scan
+
+    with torch.no_grad():
+        h_loop = lm.forward_hidden(params, batch, cfg)
+        with batched_form():
+            h_b = lm.forward_hidden(params, batch, cfg)
+    hidden_err = float((h_b - h_loop).abs().max() / h_loop.abs().max())
+    del h_loop, h_b
+    _, _, g_loop = steps.loss_and_grads(params, batch, cfg)
+    with batched_form():
+        _, _, g1 = steps.loss_and_grads(params, batch, cfg)
+    forms_err = leaf_err(g1, g_loop)
+    forms_norm = max(float((a - b).norm() / b.norm()) for a, b in zip(
+        opt.tree_leaves(g1), opt.tree_leaves(g_loop), strict=True))
+    del g_loop
+    ssm.gla_chunks_batched = counted
+    try:
+        with steps.sharded(mesh, rules):
+            _, _, g2 = steps.loss_and_grads(ps, bs, cfg)
+    finally:
+        ssm.gla_chunks_batched = batched
+    g_err = leaf_err(g2, g1)
+    del g1, g2
+    step = steps.make_train_step(cfg, opt.AdamWConfig(lr=tr["lr"]))
+    with batched_form():
+        p1, o1, m1 = step(params, opt.adamw_init(params), batch)
+    loss1 = m1["loss"].item()
+    del o1
+    with steps.sharded(mesh, rules):
+        p2, o2, m2 = step(ps, opt.adamw_init(ps), bs)
+    loss2 = _dist_full(m2["loss"]).item()
+    del o2
+    loss_err = abs(loss2 - loss1) / abs(loss1)
+    p_err = leaf_err(p2, p1)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del p1, p2, ps, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    f64 = _dist_scan_forms_f64(torch)
+    tol = DIST_SCAN_FORMS_TOL
+    if not per_rank:
+        raise AssertionError("the sharded rwkv6 step never ran the per-rank "
+                             "scan")
+    if max(loss_err, g_err, p_err) > DIST_TOL or \
+            hidden_err > tol["hidden"] or forms_norm > tol["grads_norm"] or \
+            any(e["loop"] > DIST_SCAN_F64["tol"]
+                or e["batched"] > max(DIST_SCAN_F64["tol"], 2 * e["loop"])
+                for e in f64.values()):
+        raise AssertionError(f"sharded rwkv6 step: loss {loss2} against "
+                             f"{loss1}, grads max rel err {g_err}, params "
+                             f"{p_err}; the scan forms: hidden {hidden_err},"
+                             f" grads {forms_norm} in norm; float64 {f64}")
+    emit(phase="dist_scan_step", arch=cfg.name, d_model=cfg.d_model,
+         n_heads=cfg.d_model // ssm.RWKV_HEAD, n_layers=cfg.n_layers,
+         dtype=cfg.dtype, batch=tr["batch"], seq=tr["seq"],
+         chunks=-(-tr["seq"] // 32), per_rank_scan_calls=len(per_rank),
+         mesh=shd.mesh_shape(mesh), loss=loss2, loss_unsharded=loss1,
+         loss_rel_err=loss_err, grads_max_rel_err=g_err,
+         params_max_rel_err=p_err, tolerance=DIST_TOL,
+         scan_forms_hidden_rel_err=hidden_err,
+         scan_forms_grads_norm_rel_err=forms_norm,
+         scan_forms_grads_max_rel_err=forms_err,
+         scan_forms_tolerance=tol, scan_forms_against_float64=f64,
+         scan_float64_tolerance=DIST_SCAN_F64["tol"], peak_memory_gb=peak,
+         card=card)
 
 
 def _dist_cpsum(torch, card):
@@ -3713,25 +3896,31 @@ def _dist_gnn(torch, mesh, card):
     return launches
 
 
+def _src_env() -> dict:
+    """The environment of a subprocess that imports the checkout's port."""
+    import os
+
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(REPO / "src")] + ([os.environ["PYTHONPATH"]]
+                               if os.environ.get("PYTHONPATH") else [])))
+
+
 def _dist_dryrun(torch, card):
     """(b) launch/dryrun.py as subprocesses on the fake 256- and 512-rank
     meshes, the report's tables printed."""
-    import os
     import tempfile
 
     from repro_torch.perf import report, roofline
 
     t0 = time.perf_counter()
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [str(REPO / "src")] + ([os.environ["PYTHONPATH"]]
-                               if os.environ.get("PYTHONPATH") else [])))
+    env = _src_env()
     with tempfile.TemporaryDirectory() as out:
         procs = [subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
              "--shape", shape, "--out", out, "--cell-timeout",
              str(DIST_CELL_TIMEOUT_S), *mp], env=env,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for arch, shape in DIST_DRYRUN for mp in ([], ["--multi-pod"])]
+            for arch, shape, meshes in DIST_DRYRUN for mp in meshes]
         try:
             logs = [p.communicate(timeout=600)[0] for p in procs]
         finally:
@@ -3741,7 +3930,7 @@ def _dist_dryrun(torch, card):
                     p.wait()
         recs = report.load(out)
     bad = [r for r in recs if r["status"] != "OK"]
-    if any(p.returncode for p in procs) or bad or len(recs) != 4:
+    if any(p.returncode for p in procs) or bad or len(recs) != len(procs):
         raise AssertionError(f"dry run: {[r.get('error') for r in bad]} "
                              f"{[log[-1000:] for log in logs]}")
     for mesh in ("16x16", "2x16x16"):
@@ -3769,10 +3958,10 @@ def _dist_dryrun(torch, card):
 
 def phase_dist(torch, card):
     """Phase 19: the dist layer on the card. (a) a world-1 NCCL group over a
-    FileStore and make_local_mesh() as (1, 1): the sharded smoke train step,
-    compressed_psum_mean, forward_int under shard_ctx; (b) the dry run on
-    the fake meshes. Returns the kernel launches of (a)'s run under the
-    context."""
+    FileStore and make_local_mesh() as (1, 1): the sharded codeqwen and
+    rwkv6 train steps, compressed_psum_mean, forward_int under shard_ctx;
+    (b) the dry run on the fake meshes. Returns the kernel launches of
+    (a)'s run under the context."""
     import torch.distributed as dist
 
     from repro_torch.dist import sharding as shd
@@ -3785,6 +3974,7 @@ def phase_dist(torch, card):
         raise AssertionError(f"local mesh {mesh} on {dist.get_backend()}")
     try:
         _dist_train_step(torch, mesh, card)
+        _dist_scan_step(torch, mesh, card)
         _dist_cpsum(torch, card)
         launches = _dist_gnn(torch, mesh, card)
     finally:
@@ -3793,6 +3983,40 @@ def phase_dist(torch, card):
     emit(phase="dist_done", kernel_launches=launches,
          seconds=time.perf_counter() - t_phase, card=card)
     return launches
+
+
+QUICKSTART_TIMEOUT_S = 600
+
+
+def phase_quickstart(torch, card):
+    """Phase 20: ``python -m repro_torch.examples.quickstart`` on the card,
+    as a subprocess: exit 0, the last line OK."""
+    done = subprocess.run(
+        [sys.executable, "-m", "repro_torch.examples.quickstart"],
+        env=_src_env(), capture_output=True, text=True,
+        timeout=QUICKSTART_TIMEOUT_S)
+    lines = done.stdout.strip().splitlines()
+    if done.returncode or not lines or lines[-1] != "OK":
+        raise AssertionError(f"quickstart exited {done.returncode}: "
+                             f"{done.stdout[-2000:]} {done.stderr[-2000:]}")
+    emit(phase="quickstart", lines=lines, card=card)
+
+
+PHASE_S: dict = {}
+
+
+def _timed(fn):
+    """``fn`` printing its seconds (a ``phase_seconds`` line) as it ends."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            dt = time.perf_counter() - t0
+            PHASE_S[fn.__name__] = dt
+            emit(phase="phase_seconds", name=fn.__name__, seconds=dt)
+    return run
 
 
 def main() -> int:
@@ -3806,6 +4030,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO / "src"))
+    for name in [n for n in globals() if n.startswith("phase_")]:
+        globals()[name] = _timed(globals()[name])
     # the port's timing method, used by every phase, and its card constants
     global graph_ms, time_ms, PEAK_BYTES_S, PEAK_F32_S, PEAK_BF16_S
     from repro_torch.perf.report import graph_ms, time_ms
@@ -3884,6 +4110,8 @@ def main() -> int:
         launches[name] += n
     for name, n in phase_dist(torch, card).items():
         launches[name] += n
+    phase_quickstart(torch, card)
+    emit(phase="phase_times", seconds=PHASE_S, card=card)
 
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():

@@ -31,9 +31,9 @@ import torch
 
 __all__ = ["make_rules", "shard_ctx", "current_ctx", "sharded", "constrain",
            "named_sharding", "pspec", "placements", "mesh_shape", "axis_size",
-           "shard_map", "spec_of", "unflatten", "write_along", "is_sharded",
-           "logical_spec", "AbstractMesh", "NamedSharding", "PartitionSpec",
-           "LOGICAL_AXES"]
+           "shard_map", "spec_of", "unflatten", "flatten", "write_along",
+           "is_sharded", "logical_spec", "AbstractMesh", "NamedSharding",
+           "PartitionSpec", "LOGICAL_AXES"]
 
 # Every logical axis name the model zoo uses, in one place (the reference's
 # table): param axes from the Initializer annotations in models/, activation
@@ -377,6 +377,39 @@ def unflatten(x: torch.Tensor, dim: int, sizes: tuple) -> torch.Tensor:
     return x.unflatten(dim, sizes)
 
 
+class _Flatten(torch.autograd.Function):
+    """``x.flatten(dim, dim + 1)`` whose backward splits the gradient with
+    :func:`unflatten`: a gradient sharded along the merged dim over mesh
+    axes that do not divide ``x.shape[dim]`` is gathered first."""
+
+    @staticmethod
+    def forward(x, dim):
+        return x.flatten(dim, dim + 1)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, ctx.dim = inputs
+        ctx.sizes = tuple(x.shape[ctx.dim:ctx.dim + 2])
+
+    @staticmethod
+    def backward(ctx, grad):
+        return unflatten(grad, ctx.dim, ctx.sizes), None
+
+
+def flatten(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x.flatten(dim, dim + 1)`` (heads and head dim into one).
+
+    On a DTensor the gradient may come back sharded along the merged dim
+    over mesh axes that do not divide ``x.shape[dim]`` (20 heads and a
+    16-way "model" axis, from a row-parallel product): its split gathers
+    first, as :func:`unflatten` does.
+    """
+    dim = dim % x.ndim
+    if not is_sharded(x):
+        return x.flatten(dim, dim + 1)
+    return _Flatten.apply(x, dim)
+
+
 def write_along(dst: torch.Tensor, dim: int, index, src: torch.Tensor) -> None:
     """``dst[..., index, ...] = src`` along ``dim``, in place; ``index`` is a
     slice or a 1-d index tensor.
@@ -425,10 +458,11 @@ def shard_map(fn, mesh, *, in_specs, out_specs, sum_over: tuple = ()):
     Each argument is redistributed to its spec in ``in_specs`` (a plain
     tensor is taken as replicated) and ``fn`` gets the local shards: plain
     tensors, on which it may issue collectives itself. Its output is the
-    local shard of ``out_specs``; over the mesh axes in ``sum_over`` each
-    rank holds a partial sum, which is summed (the reference's ``psum``
-    inside the function). With only plain tensors in, the output is the
-    whole plain tensor.
+    local shard of ``out_specs``, or a tuple of them where ``out_specs`` is
+    a tuple of specs; over the mesh axes in ``sum_over`` each rank holds a
+    partial sum, which is summed (the reference's ``psum`` inside the
+    function). With only plain tensors in, the output is the whole plain
+    tensor.
 
     Gradients: the sum passes the output's gradient to every rank. An
     argument replicated over a mesh axis gets the sum of the ranks' local
@@ -441,9 +475,18 @@ def shard_map(fn, mesh, *, in_specs, out_specs, sum_over: tuple = ()):
 
     names = mesh_axis_names(mesh)
     groups = [mesh.get_group(a) for a in sum_over]
-    out_place = placements(mesh, out_specs)
-    distinct = [not isinstance(p, Replicate) or a in sum_over
-                for a, p in zip(names, out_place)]
+    many = not isinstance(out_specs, PartitionSpec)
+    out_places = [placements(mesh, s)
+                  for s in (out_specs if many else (out_specs,))]
+
+    def split(place):
+        return [not isinstance(p, Replicate) or a in sum_over
+                for a, p in zip(names, place)]
+
+    distinct = split(out_places[0])
+    if any(split(place) != distinct for place in out_places[1:]):
+        raise ValueError(f"out_specs {out_specs!r} must all split (or sum "
+                         f"over) the same mesh axes")
 
     def run(*args):
         any_dt = any(isinstance(x, DTensor) for x in args)
@@ -457,10 +500,13 @@ def shard_map(fn, mesh, *, in_specs, out_specs, sum_over: tuple = ()):
                           else pl for pl, dist in zip(place, distinct)]
             local.append(x.redistribute(mesh, place)
                          .to_local(grad_placements=grad_place))
-        out = fn(*local)
-        if groups:
-            out = _SumOver.apply(out, *groups)
-        out = DTensor.from_local(out, mesh, out_place, run_check=False)
-        return out if any_dt else out.full_tensor()
+        outs = fn(*local)
+        outs = list(outs) if many else [outs]
+        for i, (out, place) in enumerate(zip(outs, out_places, strict=True)):
+            if groups:
+                out = _SumOver.apply(out, *groups)
+            out = DTensor.from_local(out, mesh, place, run_check=False)
+            outs[i] = out if any_dt else out.full_tensor()
+        return tuple(outs) if many else outs[0]
 
     return run

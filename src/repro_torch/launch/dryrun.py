@@ -17,8 +17,10 @@ For each cell we record, under the reference's keys:
   - memory: per-device argument bytes from the local shard shapes, and the
     parameter bytes among them; ``temp_bytes`` is null: ``meta`` tensors
     hold no storage, so the step's peak is not measured
-  - cost_hlo_raw: the step's FLOPs as ``torch.utils.flop_counter`` counts
-    them on the global shapes, over the device count (no HLO here)
+  - cost_hlo_raw: the step's FLOPs per device by ``torch.utils.flop_counter``'s
+    formulas (no HLO here): the DTensor ops' on their global shapes over
+    the device count, plus the per-rank functions' (``shard_map``: the
+    attention core, the scans, the expert dispatch) on one rank's shards
   - collectives by op from the recorded records (every layer runs once, so
     the trip multipliers are 1; ``scan_trips`` keeps the reference's)
   - the analytic cost (``perf.kernel_cost``), the three roofline terms on
@@ -82,8 +84,6 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
     ``timeout_s`` > 0 bounds the step's run (main thread only): past it the
     cell is recorded FAIL with a ``TimeoutError`` and where it stood.
     """
-    from torch.utils.flop_counter import FlopCounterMode
-
     from repro_torch import configs
     from repro_torch.configs.base import SHAPES, supports
     from repro_torch.launch import steps
@@ -117,9 +117,9 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
         if timeout_s:
             signal.signal(signal.SIGALRM, _out_of_time)
             signal.alarm(timeout_s)
+        flops: dict = {}
         try:
-            with roofline.record_collectives() as recs, \
-                    FlopCounterMode(display=False) as flops:
+            with roofline.record_collectives(flops) as recs:
                 out = step_fn(*inputs)
         finally:
             if timeout_s:
@@ -153,11 +153,11 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
            "temp_note": "meta tensors hold no storage: the step's "
                         "temporaries are not measured, so peak_bytes_est is "
                         "arguments plus outputs less aliases, a lower bound"}
-    total_flops = float(flops.get_total_flops())
-    cost = {"flops": total_flops / n_dev, "bytes_accessed": 0.0,
-            "raw_keys": ["flops"],
-            "note": "torch.utils.flop_counter over the step's global "
-                    "shapes, divided by the device count"}
+    cost = {"flops": flops["sharded"] / n_dev + float(flops["local"]),
+            "bytes_accessed": 0.0, "raw_keys": ["flops"],
+            "note": "torch.utils.flop_counter's formulas: DTensor ops on "
+                    "their global shapes over the device count, per-rank "
+                    "functions' ops on one rank's shards"}
     trips = kernel_cost.scan_trip_counts(cfg, shape, q_chunk=q_chunk,
                                          t_chunk=t_chunk)
     trips["micro_scan"] = n_micro

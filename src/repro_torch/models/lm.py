@@ -353,6 +353,10 @@ def _encode_frames(params, frames, cfg):
     """Whisper encoder over stub frame embeddings (B, F, D)."""
     dt = _dtype(cfg)
     h = frames.to(dt) @ params["frame_proj"].to(dt)
+    # the residual stream's layout, as every block's output has it: left
+    # split over "model" along d, the first block's products would split
+    # their rows over both mesh axes, unevenly at 1500 frames
+    h = constrain(h, "batch", None, None)
     block = _remat(_tf_block, cfg)
     for p_l in _unbind(params["enc_layers"], cfg.enc_layers):
         h = block(p_l, h, cfg, causal=False)

@@ -20,16 +20,20 @@ Mamba2/SSD semantics (inclusive):      S_t = a_t S_{t-1} + B_t (dt_t x_t)^T
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import (AbstractMesh, current_ctx, is_sharded,
+                                       logical_spec, shard_map)
 from repro_torch.models.layers import (Initializer, constrain, layer_norm,
                                        rms_norm)
 
 __all__ = [
-    "gla_chunked", "gla_sequential", "gla_step",
-    "ssd_chunked", "ssd_sequential", "ssd_step",
+    "gla_chunked", "gla_chunks_batched", "gla_sequential", "gla_step",
+    "ssd_chunked", "ssd_chunks_batched", "ssd_sequential", "ssd_step",
     "init_rwkv6_block", "rwkv6_block", "rwkv6_block_step", "rwkv6_state",
     "init_mamba2_block", "mamba2_block", "mamba2_block_step", "mamba2_state",
 ]
@@ -89,6 +93,55 @@ def gla_chunked(r, k, v, lw, u, s0, chunk: int = 32):
             "bhlk,bhlv->bhkv", k_c * rest, v_c)
         outs.append(o)
     out = torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(b, t, h, vv)
+    return out[:, :t0], s
+
+
+def gla_chunks_batched(r, k, v, lw, u, s0, chunk: int = 32):
+    """``gla_chunked`` with every chunk's own work as one batched op.
+
+    The same formulas element for element; the intra-chunk scores, the
+    bonus and each chunk's contribution to the state are computed for all
+    chunks at once, and only the state recurrence is a loop (two ops a
+    chunk), whose states then meet the queries in one batched product. A
+    sequence of ``nc`` chunks takes O(1) ops plus 2 * ``nc``, where
+    ``gla_chunked`` takes about 25 * ``nc``; it holds every chunk's
+    (L, L, K) decay tensor at once. The per-rank scan on a mesh (``_scan``)
+    runs this form.
+    """
+    b, t, h, kk = r.shape
+    vv = v.shape[-1]
+    t0 = t
+    pad = (-t) % chunk
+    if pad:
+        r, k, v, lw = (F.pad(x, (0, 0, 0, 0, 0, pad)) for x in (r, k, v, lw))
+        t = t + pad
+    nc = t // chunk
+
+    def to_chunks(x):
+        return x.reshape(b, nc, chunk, h, -1).permute(1, 0, 3, 2, 4)
+
+    rc, kc, vc, lwc = map(to_chunks, (r, k, v, lw))        # (NC,B,H,L,X)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=r.device), diagonal=-1)
+    tmask = tri[:, :, None]
+    a = torch.cumsum(lwc, dim=3)
+    a_prev = a - lwc
+    d = a_prev[..., :, None, :] - a[..., None, :, :]        # (NC,B,H,L,L,K)
+    p = torch.where(tmask, torch.exp(torch.where(tmask, d, 0.0)), 0.0)
+    p = p * kc[..., None, :, :]
+    scores = torch.einsum("cbhlk,cbhlmk->cbhlm", rc, p)
+    bonus = (rc * u[None, None, :, None, :] * kc).sum(-1)
+    rest = torch.exp(a[..., -1:, :] - a)
+    decay = torch.exp(a[..., -1, :])[..., None]              # (NC,B,H,K,1)
+    adds = torch.einsum("cbhlk,cbhlv->cbhkv", kc * rest, vc)
+    s, starts = s0, []
+    for dec_i, add_i in zip(decay.unbind(0), adds.unbind(0)):
+        starts.append(s)
+        s = s * dec_i + add_i
+    o_inter = torch.einsum("cbhlk,cbhkv->cbhlv", rc * torch.exp(a_prev),
+                           torch.stack(starts))
+    o = o_inter + scores @ vc + bonus[..., None] * vc
+    out = o.permute(1, 0, 3, 2, 4).reshape(b, t, h, vv)
     return out[:, :t0], s
 
 
@@ -160,6 +213,51 @@ def ssd_chunked(x, a_log, B, C, s0, chunk: int = 128):
     return y[:, :t0], s
 
 
+def ssd_chunks_batched(x, a_log, B, C, s0, chunk: int = 128):
+    """``ssd_chunked`` with every chunk's own work as one batched op, for
+    the single group's B, C (B, T, N), which every head shares.
+
+    The same formulas element for element, batched over the chunks as in
+    ``gla_chunks_batched``: only the state recurrence is a loop. ``C . B``
+    is computed once for all heads (each head's is the same dot product)
+    and each head applies its own decay.
+    """
+    b, t, h, p = x.shape
+    n = B.shape[-1]
+    t0 = t
+    pad = (-t) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        B, C = (F.pad(z, (0, 0, 0, pad)) for z in (B, C))
+        a_log = F.pad(a_log, (0, 0, 0, pad))
+        t = t + pad
+    nc = t // chunk
+
+    xc = x.reshape(b, nc, chunk, h, p).permute(1, 0, 3, 2, 4)  # (NC,B,H,L,P)
+    Bc = B.reshape(b, nc, chunk, n).transpose(0, 1)            # (NC,B,L,N)
+    Cc = C.reshape(b, nc, chunk, n).transpose(0, 1)
+    ac = a_log.reshape(b, nc, chunk, h).permute(1, 0, 3, 2)   # (NC,B,H,L)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=x.device))             # s <= t
+    ca = torch.cumsum(ac, dim=3)
+    d = ca[..., :, None] - ca[..., None, :]
+    w = torch.where(tri, torch.exp(torch.where(tri, d, 0.0)), 0.0)
+    cb = torch.einsum("cbln,cbmn->cblm", Cc, Bc)
+    y_intra = (cb[:, :, None] * w) @ xc
+    rest = torch.exp(ca[..., -1:] - ca)                        # (NC,B,H,L)
+    decay = torch.exp(ca[..., -1])[..., None, None]           # (NC,B,H,1,1)
+    adds = torch.einsum("cbhln,cbhlp->cbhnp",
+                        Bc[:, :, None] * rest[..., None], xc)
+    s, starts = s0, []
+    for dec_i, add_i in zip(decay.unbind(0), adds.unbind(0)):
+        starts.append(s)
+        s = s * dec_i + add_i
+    y_inter = torch.einsum("cbln,cbhnp->cbhlp", Cc, torch.stack(starts)) \
+        * torch.exp(ca)[..., None]
+    y = (y_inter + y_intra).permute(1, 0, 3, 2, 4).reshape(b, t, h, p)
+    return y[:, :t0], s
+
+
 def ssd_sequential(x, a_log, B, C, s0):
     """Token-by-token oracle for ssd_chunked."""
     s, ys = s0, []
@@ -174,6 +272,38 @@ def ssd_step(x_t, a_t, b_t, c_t, s):
     s = torch.exp(a_t)[..., None, None] * s + b_t[..., :, None] * x_t[..., None, :]
     y = torch.einsum("bhn,bhnp->bhp", c_t, s)
     return y, s
+
+
+# =====================================================================
+# the scans on a mesh
+# =====================================================================
+
+def _scan(scan, per_rank, args, names, state_at: int):
+    """``scan(*args)`` -> (out (B, T, H, X), final state); on a mesh,
+    ``per_rank`` on each rank's shards.
+
+    Off a mesh (no shard context, an ``AbstractMesh``, or no DTensor among
+    ``args``) it is ``scan(*args)``. Under a shard context with DTensor
+    inputs the whole chunked scan runs as one per-rank function
+    (``shard_map``): each argument ``args[i]`` takes the spec its logical
+    ``names[i]`` resolve to (batch rows over the rules' "batch", heads over
+    the mesh axes that hold "heads"; ``None`` names for inputs every head
+    shares, which stay replicated), the output the spec of ``args[0]`` and
+    the final state the spec of the initial one, ``args[state_at]``. The
+    scan is independent per (batch row, head), so no sum is needed, and
+    the DTensor ops a layer issues no longer grow with the sequence's
+    number of chunks. ``per_rank`` is the chunk-batched form of ``scan``,
+    so that its own ops grow by two a chunk, not by some 25.
+    """
+    ctx = current_ctx()
+    if ctx is None or isinstance(ctx[0], AbstractMesh) or \
+            not any(map(is_sharded, args)):
+        return scan(*args)
+    mesh, rules = ctx
+    specs = tuple(logical_spec(mesh, rules, n, x.shape)
+                  for x, n in zip(args, names, strict=True))
+    return shard_map(per_rank, mesh, in_specs=specs,
+                     out_specs=(specs[0], specs[state_at]))(*args)
 
 
 # =====================================================================
@@ -281,10 +411,21 @@ def _rwkv_block(p, x, cfg, chunk):
     xn = layer_norm(x, p["ln1_w"], p["ln1_b"]).to(F32)
     r, k, v, g, lw = _rwkv_time_mix(p, xn, _shift(xn, zero), cfg)
     s0 = torch.zeros((b, h, RWKV_HEAD, RWKV_HEAD), dtype=F32, device=x.device)
-    wkv, s_fin = gla_chunked(r, k, v, lw, p["u"].to(F32), s0, min(chunk, t))
-    x = x + _rwkv_out(p, wkv, g, cfg, dtype)
+    seq = ("batch", None, "heads", None)
+    c = min(chunk, t)
+    wkv, s_fin = _scan(
+        functools.partial(gla_chunked, chunk=c),
+        functools.partial(gla_chunks_batched, chunk=c),
+        (r, k, v, lw, p["u"].to(F32), s0),
+        (seq, seq, seq, seq, ("heads", None), ("batch", "heads", None, None)),
+        state_at=5)
+    # the residual stream replicated over the tensor-parallel axis, as a
+    # transformer block's output: the row-parallel products leave partial
+    # sums, which DTensor would otherwise reduce-scatter along the sequence
+    x = constrain(x + _rwkv_out(p, wkv, g, cfg, dtype), "batch", None, None)
     xn2 = layer_norm(x, p["ln2_w"], p["ln2_b"]).to(F32)
     x = x + _rwkv_channel_mix(p, xn2, _shift(xn2, zero)).to(dtype)
+    x = constrain(x, "batch", None, None)
     return x, {"s": s_fin, "x_t": xn[:, -1], "x_c": xn2[:, -1]}
 
 
@@ -369,15 +510,31 @@ def _mamba_ssm(p, xbc, dt, cfg):
     a_log_t = dt * a                                            # log decay <= 0
     shp = x.shape[:-1]
     xh = x.reshape(*shp, nh, MAMBA_HEAD) * dt[..., None]        # dt-scaled input
-    Bh = B[..., None, :].expand(*shp, nh, n)
-    Ch = C[..., None, :].expand(*shp, nh, n)
-    return xh, a_log_t, Bh, Ch, x
+    return xh, a_log_t, B, C, x
+
+
+def _to_heads(z, nh: int):
+    """(..., N) -> (..., nh, N): the single group's B or C, every head's."""
+    return z[..., None, :].expand(*z.shape[:-1], nh, z.shape[-1])
+
+
+def _ssd_grouped(x, a_log, B, C, s0, chunk: int):
+    """``ssd_chunked`` with B and C (B, T, N) of the single group,
+    broadcast here to x's heads."""
+    h = x.shape[2]
+    return ssd_chunked(x, a_log, _to_heads(B, h), _to_heads(C, h), s0, chunk)
 
 
 def _gated_rmsnorm(y, z, w):
     y = y * F.silu(z)
-    return y * torch.rsqrt(y.square().mean(-1, keepdim=True) + 1e-6) \
-        * w.to(F32)
+    # over heads split over the tensor-parallel axis the sum of squares is
+    # a partial sum: reduced whole here (left to DTensor, it is scattered
+    # along the sequence, and a mean's partial average cannot be
+    # redistributed in backward); on the CPU sum / n is what mean computes
+    ss = y.square().sum(-1, keepdim=True)
+    if ss.ndim == 3:  # (B, T, 1); a decode step's (B, 1) is left as it was
+        ss = constrain(ss, "batch", None, None)
+    return y * torch.rsqrt(ss / y.shape[-1] + 1e-6) * w.to(F32)
 
 
 def _mamba_block(p, x, cfg, chunk):
@@ -394,13 +551,23 @@ def _mamba_block(p, x, cfg, chunk):
     wconv = p["conv_w"].to(F32)
     xbc = sum(xpad[:, i:i + t] * wconv[i] for i in range(CONV_K)) \
         + p["conv_b"].to(F32)
-    xh, a_log_t, Bh, Ch, _ = _mamba_ssm(p, xbc, dt, cfg)
+    xh, a_log_t, B, C, _ = _mamba_ssm(p, xbc, dt, cfg)
     s0 = torch.zeros((b, nh, n, MAMBA_HEAD), dtype=F32, device=x.device)
-    y, s_fin = ssd_chunked(xh, a_log_t, Bh, Ch, s0, chunk=min(chunk, t))
+    shared = ("batch", None, None)
+    c = min(chunk, t)
+    y, s_fin = _scan(
+        functools.partial(_ssd_grouped, chunk=c),
+        functools.partial(ssd_chunks_batched, chunk=c),
+        (xh, a_log_t, B, C, s0),
+        (("batch", None, "heads", None), ("batch", None, "heads"), shared,
+         shared, ("batch", "heads", None, None)),
+        state_at=4)
     y = y + p["d_skip"].to(F32)[:, None] * xh
     y = _gated_rmsnorm(y.reshape(b, t, d_in), z, p["norm_w"])
     wo = constrain(p["out_proj"], "mlp_compute", None)
-    x = x + (y @ wo.to(F32)).to(dtype)
+    # the residual stream replicated over the tensor-parallel axis, as in
+    # the rwkv6 block
+    x = constrain(x + (y @ wo.to(F32)).to(dtype), "batch", None, None)
     # the conv state: the last CONV_K - 1 pre-conv inputs
     return x, {"s": s_fin, "conv": xpad[:, -(CONV_K - 1):]}
 
@@ -420,8 +587,9 @@ def mamba2_block_step(p, x, state, cfg: ModelConfig):
     window = torch.cat([state["conv"], xbc[:, None]], dim=1)  # (B,K,W)
     xbc = torch.einsum("bkw,kw->bw", window, p["conv_w"].to(F32)) \
         + p["conv_b"].to(F32)
-    xh, a_log_t, Bh, Ch, _ = _mamba_ssm(p, xbc, dt, cfg)
-    y, s = ssd_step(xh, a_log_t, Bh, Ch, state["s"])
+    xh, a_log_t, B, C, _ = _mamba_ssm(p, xbc, dt, cfg)
+    y, s = ssd_step(xh, a_log_t, _to_heads(B, nh), _to_heads(C, nh),
+                    state["s"])
     y = y + p["d_skip"].to(F32)[:, None] * xh
     y = _gated_rmsnorm(y.reshape(b, d_in), z, p["norm_w"])
     x = x + (y @ p["out_proj"].to(F32)).to(dtype)

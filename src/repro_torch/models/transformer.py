@@ -30,8 +30,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.collectives import all_gather, all_reduce, all_to_all
 from repro_torch.dist.sharding import (AbstractMesh, axis_size, current_ctx,
-                                       is_sharded, logical_spec, mesh_shape,
-                                       pspec, shard_map, spec_of,
+                                       flatten, is_sharded, logical_spec,
+                                       mesh_shape, pspec, shard_map, spec_of,
                                        unflatten, write_along)
 from repro_torch.models.layers import (Initializer, apply_rope, constrain,
                                        dense, rope)
@@ -414,7 +414,7 @@ def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
 
     out = _attend(q, k, v, q_pos, kv_pos, causal=causal, window=window,
                   dtype=x.dtype, q_chunk=q_chunk if t > q_chunk else None)
-    out = dense(out.reshape(b, t, h * dh), wo)
+    out = dense(flatten(out, 2), wo)
     return constrain(out, "batch", None, None), out_cache
 
 

@@ -29,6 +29,7 @@ import dataclasses
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import flop_registry
 
 __all__ = ["HW", "hbm_bytes", "link_bw", "parse_collectives",
            "collective_bytes", "record_collectives", "roofline_terms",
@@ -135,14 +136,21 @@ def collective_bytes(records, trips: dict | None = None) -> dict:
 
 
 class _Recorder(TorchDispatchMode):
-    def __init__(self, records):
+    def __init__(self, records, flops):
         super().__init__()
         self.records = records
+        self.flops = flops
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         pkt = func.overloadpacket
+        if self.flops is not None and pkt in flop_registry:
+            from repro_torch.dist.sharding import is_sharded
+
+            key = "sharded" if any(map(is_sharded, args)) else "local"
+            self.flops[key] += flop_registry[pkt](*args, **kwargs,
+                                                  out_val=out)
         if getattr(pkt, "_qualified_op_name", "").startswith(
                 "_c10d_functional::") and pkt.__name__ in _OPS:
             from torch.distributed.distributed_c10d import \
@@ -158,12 +166,22 @@ class _Recorder(TorchDispatchMode):
 
 
 @contextlib.contextmanager
-def record_collectives():
+def record_collectives(flops: dict | None = None):
     """Yields a list that fills with ``(op, result_bytes, group)`` for every
     functional collective dispatched inside the context (DTensor's
-    redistributions and ``torch.distributed._functional_collectives``)."""
+    redistributions and ``torch.distributed._functional_collectives``).
+
+    ``flops``, a dict, also gathers the FLOPs of every op that
+    ``torch.utils.flop_counter`` has a formula for: under ``"sharded"``
+    those of DTensor ops, on their global shapes, and under ``"local"``
+    those of plain tensors' ops (a per-rank function's, on one rank's
+    shards).
+    """
     records: list = []
-    with _Recorder(records):
+    if flops is not None:
+        flops.setdefault("sharded", 0)
+        flops.setdefault("local", 0)
+    with _Recorder(records, flops):
         yield records
 
 

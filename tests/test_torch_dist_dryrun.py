@@ -1,6 +1,8 @@
 """``python -m repro_torch.launch.dryrun`` in subprocesses on the fake
 256-rank (16, 16) mesh, on the CPU: codeqwen1.5-7b at full size x
-``train_4k`` and ``decode_32k``.
+``train_4k`` and ``decode_32k``; whisper-large-v3 x ``train_4k`` (20 heads
+on the 16-way "model" axis, forward and backward) and rwkv6-1.6b x
+``prefill_32k`` (the chunked scan run per rank, 1024 chunks a layer).
 
 Each cell must be ``OK``; its per-device parameter bytes must equal the sum,
 over the leaves, of each leaf's bytes over its shard count under the cell's
@@ -18,7 +20,12 @@ import pytest
 torch = pytest.importorskip("torch")
 
 CELLS = (("codeqwen1.5-7b", "train_4k", "train"),
-         ("codeqwen1.5-7b", "decode_32k", "serve"))
+         ("codeqwen1.5-7b", "decode_32k", "serve"),
+         ("whisper-large-v3", "train_4k", "train"),
+         ("rwkv6-1.6b", "prefill_32k", "serve"))
+# each arch's parameter count, to the order the config gives
+MIN_PARAMS = {"codeqwen1.5-7b": 7e9, "whisper-large-v3": 1.5e9,
+              "rwkv6-1.6b": 1.5e9}
 
 
 @pytest.fixture(scope="module")
@@ -30,7 +37,7 @@ def records(tmp_path_factory):
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for arch, shape, _ in CELLS]
     logs = [p.communicate(timeout=300)[0] for p in procs]
-    assert [p.returncode for p in procs] == [0, 0], logs
+    assert [p.returncode for p in procs] == [0] * len(CELLS), logs
     return {(r["arch"], r["shape"]): r for r in
             (json.loads(p.read_text()) for p in sorted(out.glob("*.json")))}
 
@@ -83,7 +90,7 @@ def test_cell_is_ok_with_its_shard_bytes_and_collectives(records, arch,
     rl = r["roofline"]
     assert rl["bottleneck"] in ("compute", "memory", "collective")
     assert rl["compute_s"] > 0 and rl["memory_s"] > 0
-    assert r["fits_hbm"] is True and r["n_params"] > 7e9
+    assert r["fits_hbm"] is True and r["n_params"] > MIN_PARAMS[arch]
 
 
 def test_the_report_renders_the_records_as_the_reference(records):

@@ -54,7 +54,38 @@ still pass.
   ``use_sm`` true, taken once), output and the gradients of a weighted sum
   within 1e-5 of the single-device ``moe``;
 - the GNN int forward under ``shard_ctx`` on the CPU's plain version: logits
-  bit-equal to the forward without a context.
+  bit-equal to the forward without a context;
+- three smoke-width LMs the dry run's open cells stand for, float32, each
+  with DTensor parameters: a whisper-shaped encoder-decoder with 3 heads
+  and 3 kv heads (the 2-way "model" axis does not divide them, as 16 does
+  not divide whisper-large-v3's 20: the heads stay replicated, the
+  projections' columns do not, and the gradient of the heads' flatten
+  comes back split over "model"), rwkv6 at d_model 128 (2 heads of 64,
+  split over "model") and zamba2 (2 mamba heads split over "model"; its
+  fused ``in_proj`` split over "model" at a width whose z/x/B/C/dt slices
+  do not fall on the shard boundary). The chunked scans run per rank
+  (``ssm._scan``), at a sequence of 160: 5 chunks for rwkv6, 2 for
+  mamba2, the last padded. Under the train rules the loss within 1e-5 of
+  the unsharded port's and every gradient leaf within 1e-5 of it (the
+  whisper-shaped case) or 5e-5 (rwkv6, zamba2: see below), and one train
+  step: its loss within 1e-5 of the unsharded step's, its parameters
+  within 1e-6 of AdamW applied, unsharded, to the gathered sharded
+  gradients (as for minitron above); under the serve rules the prefill's
+  logits within 1e-5 of the unsharded prefill's, relative to their
+  largest element. The two scan models' gradients sit at float32 noise
+  near 1e-5 of their largest element: unsharded, in one process, their
+  gradients move by up to 1.4e-5 (zamba2) and 3e-6 (rwkv6) when only the
+  scan's backward summation order changes (the loop over chunks against
+  the chunk-batched form, whose forward was bit-equal), and the
+  sharded ones came 0.4-2.5e-5 from the unsharded ones over seeds 7-11 at
+  sequences 64, 96 and 160 (codeqwen's and the whisper-shaped case's
+  stay near 1e-6). ``test_scan_models_gradient_noise`` measures the first
+  figure;
+- the DTensor ops one sharded rwkv6 layer dispatches, forward and
+  backward (a ``TorchDispatchMode`` counting the dispatches that take a
+  DTensor): the same count at sequences of 64 and 128 (2 and 4 chunks),
+  where the layer with its scan run as DTensor ops (``_scan`` bypassed)
+  dispatches more at 128 than at 64.
 
 The child processes import no JAX: the module imports it only inside the
 tests.
@@ -67,6 +98,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
+from torch.utils._pytree import tree_leaves  # noqa: E402
 
 WORLD = 4
 TIMEOUT_S = 120
@@ -75,6 +108,11 @@ ROUNDS = 20
 GRAD_RTOL = 1e-5
 REMATS = ("full", "dots")
 PARAM_RTOL = 1e-6
+# rwkv6 and zamba2: the float32 noise of their own backward (docstring)
+SCAN_GRAD_RTOL = 5e-5
+LM_CASES = ("uneven_heads", "rwkv6", "zamba2")
+LM_RUN = dict(batch=4, seq=160, prompt=24)
+OP_SEQS = (64, 128)
 
 
 def _opt():
@@ -89,6 +127,72 @@ def _smoke(arch, **kw):
 
     return dataclasses.replace(smoke_config(configs.get(arch)),
                                dtype="float32", **kw)
+
+
+def _lm_config(name):
+    if name == "uneven_heads":
+        return _smoke("whisper-large-v3", n_heads=3, n_kv_heads=3)
+    if name == "rwkv6":
+        return _smoke("rwkv6-1.6b", d_model=128)
+    return _smoke("zamba2-7b")
+
+
+def _lm_batch(cfg):
+    from repro_torch.train import data
+
+    return data.batch_for_arch(cfg, 0, 0, LM_RUN["batch"], LM_RUN["seq"],
+                               device="cpu")
+
+
+def _prefill_batch(batch):
+    return {k: v[:, :LM_RUN["prompt"]] if k == "tokens" else v
+            for k, v in batch.items() if k != "labels"}
+
+
+class _DTensorOps(TorchDispatchMode):
+    """Counts the ops dispatched with a DTensor among their arguments (a
+    per-rank function's own ops take plain tensors)."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from repro_torch.dist.sharding import is_sharded
+
+        self.n += any(map(is_sharded, tree_leaves((args, kwargs))))
+        return func(*args, **(kwargs or {}))
+
+
+def _rwkv_layer_ops(mesh, seq, per_rank=True):
+    """DTensor dispatches of one rwkv6 layer's forward and backward on the
+    mesh, at ``seq`` (``per_rank`` False: the scan as DTensor ops)."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.models import ssm as S
+
+    cfg = _lm_config("rwkv6")
+    params, axes = lm.init_lm(cfg, torch.Generator().manual_seed(5),
+                              device="cpu")
+    p = {k: v[0] for k, v in params["layers"].items()}
+    a = {k: v[1:] for k, v in axes["layers"].items()}
+    rules = shd.make_rules("train")
+    p = steps.distribute(p, steps.param_shardings(mesh, rules, a, p))
+    p = {k: v.detach().requires_grad_() for k, v in p.items()}
+    x = torch.randn((LM_RUN["batch"], seq, cfg.d_model),
+                    generator=torch.Generator().manual_seed(6))
+    x = shd.NamedSharding(mesh, shd.pspec("data", None, None)).distribute(x)
+    scan = S._scan
+    if not per_rank:
+        S._scan = lambda plain, per_rank_fn, args, names, state_at: \
+            plain(*args)
+    try:
+        with steps.sharded(mesh, rules), _DTensorOps() as ops:
+            S.rwkv6_block(p, x.requires_grad_(), cfg).sum().backward()
+    finally:
+        S._scan = scan
+    return ops.n
 
 
 def _cpsum_inputs():
@@ -245,6 +349,15 @@ def _rank_main(rank, store_dir, cases):
             got = gnn.forward_int(params, art, cfg)
     out["gnn"] = (want, got)
 
+    # the dry run's open cells at smoke width: uneven heads and the scans
+    for name in LM_CASES:
+        out[f"lm_{name}"] = _lm_on_mesh(mesh, cases["lm"][name], on_mesh,
+                                        gathered)
+    # the DTensor ops of a sharded rwkv6 layer against the sequence
+    out["rwkv_ops"] = {seq: _rwkv_layer_ops(mesh, seq) for seq in OP_SEQS}
+    out["rwkv_ops_dtensor_scan"] = {
+        seq: _rwkv_layer_ops(mesh, seq, per_rank=False) for seq in OP_SEQS}
+
     # a DTensor never reaches a kernel: every wrapper asks kernel_device
     from repro_torch.kernels import _build
 
@@ -258,6 +371,46 @@ def _rank_main(rank, store_dir, cases):
 
     torch.save(out, f"{store_dir}/rank{rank}.pt")
     dist.destroy_process_group()
+
+
+def _lm_on_mesh(mesh, case, on_mesh, gathered):
+    """Prefill logits under the serve rules, then the loss, the gradients
+    and one train step under the train rules, with DTensor parameters."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.train import optimizer as opt
+
+    cfg, batch = case["cfg"], case["batch"]
+    res = {}
+    rules = shd.make_rules("serve")
+    pre = _prefill_batch(batch)
+    p, b = on_mesh(cfg, opt.tree_map(torch.clone, case["params"]),
+                   case["axes"], pre, rules)
+    c_shapes, c_axes = lm.init_decode_cache(cfg, LM_RUN["batch"],
+                                            LM_RUN["seq"], device="cpu")
+    cache = steps.distribute(c_shapes, steps.cache_shardings(
+        mesh, rules, c_axes, c_shapes))
+    with torch.no_grad(), steps.sharded(mesh, rules):
+        logits, _ = lm.prefill(p, b, cfg, max_seq=LM_RUN["seq"], cache=cache)
+    res["prefill"] = logits.full_tensor()
+
+    rules = shd.make_rules("train")
+    p, b = on_mesh(cfg, opt.tree_map(torch.clone, case["params"]),
+                   case["axes"], batch, rules)
+    with steps.sharded(mesh, rules):
+        loss, _, grads = steps.loss_and_grads(p, b, cfg)
+    res["loss"] = loss.full_tensor().item()
+    res["grads"] = gathered(grads)
+    plain = gathered(p)
+    res["params_from_grads"], _ = opt.adamw_update(
+        plain, res["grads"], opt.adamw_init(plain), _opt())
+    step = steps.make_train_step(cfg, _opt())
+    with steps.sharded(mesh, rules):
+        p, _, metrics = step(p, opt.adamw_init(p), b)
+    res["step_loss"] = metrics["loss"].full_tensor().item()
+    res["params"] = gathered(p)
+    return res
 
 
 DECODE = dict(batch=4, prompt=8, max_seq=16, steps=3)
@@ -371,6 +524,24 @@ def _cases():
         cases["decode"][name] = dict(cfg=cfg, params=params, axes=axes)
         with torch.no_grad():
             want["decode"][name], _ = _decode(params, cfg)
+
+    cases["lm"], want["lm"] = {}, {}
+    for seed, name in enumerate(LM_CASES, start=7):
+        cfg = _lm_config(name)
+        params, axes = lm.init_lm(cfg, torch.Generator().manual_seed(seed),
+                                  device="cpu")
+        batch = _lm_batch(cfg)
+        cases["lm"][name] = dict(cfg=cfg, params=params, axes=axes,
+                                 batch=batch)
+        with torch.no_grad():
+            logits, _ = lm.prefill(params, _prefill_batch(batch), cfg,
+                                   max_seq=LM_RUN["seq"])
+        loss, _, grads = steps.loss_and_grads(params, batch, cfg)
+        step = steps.make_train_step(cfg, _opt())
+        _, _, m = step(opt.tree_map(torch.clone, params),
+                       opt.adamw_init(params), batch)
+        want["lm"][name] = dict(prefill=logits, loss=loss.item(), grads=grads,
+                                step_loss=m["loss"].item())
 
     cfg = _smoke("olmoe-1b-7b")
     params, axes = lm.init_lm(cfg, torch.Generator().manual_seed(2),
@@ -543,6 +714,71 @@ def test_gnn_int_forward_under_a_context_is_bit_equal(session):
         assert torch.equal(want, under)
         assert got[rank]["dtensor_refused"]
     assert torch.equal(got[0]["gnn"][0], got[WORLD - 1]["gnn"][0])
+
+
+@pytest.mark.parametrize("name", LM_CASES)
+def test_sharded_lm_loss_gradients_and_step_match_unsharded(session, name):
+    got, want = session
+    w = want["lm"][name]
+    for rank in range(WORLD):
+        g = got[rank][f"lm_{name}"]
+        assert abs(g["loss"] - w["loss"]) <= 1e-5 * abs(w["loss"])
+        _close_leaves(g["grads"], w["grads"], GRAD_RTOL
+                      if name == "uneven_heads" else SCAN_GRAD_RTOL)
+        assert abs(g["step_loss"] - w["step_loss"]) <= \
+            1e-5 * abs(w["step_loss"])
+        _close_leaves(g["params"], g["params_from_grads"], PARAM_RTOL,
+                      norm=False)
+
+
+@pytest.mark.parametrize("name", LM_CASES)
+def test_sharded_lm_prefill_matches_unsharded(session, name):
+    got, want = session
+    b = want["lm"][name]["prefill"]
+    for rank in range(WORLD):
+        a = got[rank][f"lm_{name}"]["prefill"]
+        assert a.shape == b.shape and torch.isfinite(a).all()
+        assert (a - b).abs().max() <= 1e-5 * b.abs().max()
+
+
+@pytest.mark.parametrize("name", ("rwkv6", "zamba2"))
+def test_scan_models_gradient_noise(name, monkeypatch):
+    """Unsharded, one process: the gradients with the scan's loop form
+    against those with its chunk-batched form (the per-rank one). The
+    forwards agree to float32 rounding (bit-equal on the CPU measured);
+    the backward's summation order differs, and the gradients move by
+    float32 noise near 1e-5 of a leaf's largest element, below the bound
+    the sharded gradients are held to."""
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.models import ssm as S
+
+    seed = 7 + LM_CASES.index(name)
+    cfg = _lm_config(name)
+    params, _ = lm.init_lm(cfg, torch.Generator().manual_seed(seed),
+                           device="cpu")
+    batch = _lm_batch(cfg)
+    with torch.no_grad():
+        h = lm.forward_hidden(params, batch, cfg)
+    _, _, loop = steps.loss_and_grads(params, batch, cfg)
+    monkeypatch.setattr(S, "_scan", lambda plain, per_rank, args, names,
+                        state_at: per_rank(*args))
+    with torch.no_grad():
+        d = (lm.forward_hidden(params, batch, cfg) - h).abs().max()
+    assert d <= 1e-6 * h.abs().max()
+    _, _, batched = steps.loss_and_grads(params, batch, cfg)
+    _close_leaves(batched, loop, SCAN_GRAD_RTOL)
+
+
+def test_sharded_rwkv6_layer_ops_do_not_grow_with_the_sequence(session):
+    got, _ = session
+    short, long_ = OP_SEQS
+    for rank in range(WORLD):
+        ops = got[rank]["rwkv_ops"]
+        assert ops[short] == ops[long_] > 0, ops
+        # the count sees the scan: run as DTensor ops it grows with it
+        bare = got[rank]["rwkv_ops_dtensor_scan"]
+        assert bare[long_] > bare[short] > ops[short], (bare, ops)
 
 
 def test_the_ranks_import_no_jax():

@@ -98,6 +98,64 @@ def test_chunked_forms_stay_finite_under_strong_decay(core):
     assert all(torch.isfinite(o).all() for o in outs)
 
 
+@pytest.mark.parametrize("t,chunk", [(16, 8), (13, 8), (8, 8), (5, 4),
+                                     (100, 32)])
+def test_gla_chunk_batched_form(t, chunk):
+    """The per-rank form (every chunk's own work batched, only the state
+    recurrence a loop): within TOL of the reference's chunked form and of
+    the port's loop over the chunks."""
+    j, tt = _both(*_gla_inputs(2, t, 3, 8, seed=t))
+    o_r, s_r = jax.jit(RS.gla_chunked, static_argnums=6)(*j, chunk)
+    o_b, s_b = TS.gla_chunks_batched(*tt, chunk)
+    assert _rel(o_b, o_r) <= TOL and _rel(s_b, s_r) <= TOL
+    o_t, s_t = TS.gla_chunked(*tt, chunk)
+    assert _rel(o_b, o_t.numpy()) <= TOL and _rel(s_b, s_t.numpy()) <= TOL
+
+
+@pytest.mark.parametrize("t,chunk", [(16, 8), (13, 8), (8, 8), (3, 4),
+                                     (130, 128)])
+def test_ssd_chunk_batched_form(t, chunk):
+    """The per-rank form takes the single group's B, C (B, T, N), which
+    every head shares (``C . B`` once for all heads): within TOL of the
+    reference's chunked form on B, C broadcast to the heads and of the
+    port's loop over the chunks."""
+    x, a, B, C, s0 = _ssd_inputs(2, t, 3, 8, 4, seed=t)
+    B, C = (np.broadcast_to(z[:, :, :1], z.shape).copy() for z in (B, C))
+    j, tt = _both(x, a, B, C, s0)
+    y_r, s_r = jax.jit(RS.ssd_chunked, static_argnums=5)(*j, chunk)
+    grouped = [tt[0], tt[1], tt[2][:, :, 0], tt[3][:, :, 0], tt[4]]
+    y_b, s_b = TS.ssd_chunks_batched(*grouped, chunk)
+    assert _rel(y_b, y_r) <= TOL and _rel(s_b, s_r) <= TOL
+    y_t, s_t = TS.ssd_chunked(*tt, chunk)
+    assert _rel(y_b, y_t.numpy()) <= TOL and _rel(s_b, s_t.numpy()) <= TOL
+
+
+def test_scans_off_a_mesh_run_the_loop_forms(monkeypatch):
+    """Outside a shard context, and inside one on an ``AbstractMesh``, the
+    blocks run ``gla_chunked`` / ``ssd_chunked`` as before: the per-rank
+    forms are never called, and the outputs are bit-equal."""
+    from repro_torch.dist import sharding as shd
+
+    def refuse(*a, **k):
+        raise AssertionError("per-rank scan off a mesh")
+
+    monkeypatch.setattr(TS, "gla_chunks_batched", refuse)
+    monkeypatch.setattr(TS, "ssd_chunks_batched", refuse)
+    mesh = shd.AbstractMesh((16, 16), ("data", "model"))
+    for arch, init, block in (("rwkv6-1.6b", RS.init_rwkv6_block,
+                               TS.rwkv6_block),
+                              ("zamba2-7b", RS.init_mamba2_block,
+                               TS.mamba2_block)):
+        cfg_r, cfg_t = _cfgs(arch)
+        _, pt = _block_params(init, cfg_r)
+        x = torch.tensor(np.random.default_rng(3).normal(
+            size=(2, 40, cfg_r.d_model)).astype(np.float32))
+        want = block(pt, x, cfg_t, chunk=16)
+        with shd.shard_ctx(mesh, shd.make_rules("train")):
+            got = block(pt, x, cfg_t, chunk=16)
+        assert torch.equal(got, want)
+
+
 def test_gla_step():
     j, tt = _both(*_gla_inputs(2, 1, 3, 8, seed=5))
     jr = [a[:, 0] for a in j[:4]] + j[4:]
