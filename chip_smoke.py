@@ -87,7 +87,9 @@ without printing a result:
      128, x in float32 and bf16: ms (a CUDA graph of 50 calls over enough
      weight copies to exceed L2) beside its plain version, its bound (bytes
      or bf16 tensor-core passes, with the CUDA-core bound beside it), and
-     float32 and bf16 torch.matmul of the dequantized weight.
+     float32 and bf16 torch.matmul of the dequantized weight; at the gate
+     projection and batch 128 the kernel and both products again in turns
+     (``wq_library_turns``).
   10. packing — paper §4.6 on the main path's batch 0 and on a copy of it
      whose edge list is padded to an odd length (the packed planes then 8-
      but not 16-byte aligned in the buffer), at 8, 4 and 1 bits: the four
@@ -204,7 +206,16 @@ without printing a result:
      over the step as a share of the 989 TFLOP/s dense bf16 peak of the
      datasheet); 3 steps under torch.profiler (device ms, idle share,
      ops a step); one step with the stacked leaves indexed per layer
-     against one unbind; the remat modes at 4 layers (ms, peak). (d) The
+     against one unbind; the remat modes at 4 layers (ms, peak), each
+     with one more step under the peak check below and one with the
+     allocator read around each op (``peak_scratch``: the kernels'
+     scratch, which perf/roofline.PeakMemory models). The peak check:
+     PeakMemory around the step against the allocator's in-step peak
+     (max_memory_allocated() after it less memory_allocated() just before
+     it), within 5 %, and against the same step's peak on meta, run in a
+     subprocess holding a world-1 fake group (``meta_peaks``), which must
+     be equal (``peak_check`` lines, with what the card held beside the
+     step's arguments). (d) The
      launchers: launch/train on rwkv6-1.6b --smoke, failing at step 6
      (exit 17) and rerun to resume from step 4 to step 12, its final
      parameters against an uninterrupted run's; qgtc-gcn --smoke
@@ -221,7 +232,8 @@ without printing a result:
      with depth cut to 2 layers as in phase 18, in float32: loss_and_grads
      and one train step with DTensor parameters against the plain ones,
      the loss, every gradient and every updated parameter within 1e-6
-     relative to the leaf's largest element; compressed_psum_mean over NCCL bit-equal to the local round
+     relative to the leaf's largest element, both steps under phase 18's
+     peak check; compressed_psum_mean over NCCL bit-equal to the local round
      trip, 3 rounds of error feedback; forward_int of qgtc-gcn under
      shard_ctx bit-equal to the forward without a context, through
      bitserial_gemm (these launches join the kernels line); rwkv6-1.6b at
@@ -238,8 +250,8 @@ without printing a result:
      launch/dryrun.py as seven subprocesses (codeqwen1.5-7b x train_4k
      and decode_32k on the fake 16x16 and 2x16x16 groups; whisper-large-v3
      x train_4k, rwkv6-1.6b x prefill_32k and zamba2-7b x prefill_32k on
-     16x16), every cell OK, the report's roofline and dry-run tables
-     printed.
+     16x16), every cell OK with its per-device peak, the report's
+     roofline and dry-run tables printed.
 
   20. Quickstart — ``python -m repro_torch.examples.quickstart`` as a
      subprocess on the card: the §5 tour (to_bit and bitpack, bitmm2int
@@ -396,6 +408,9 @@ CODEQWEN_PROJ = {"wq": (D_MODEL, D_MODEL), "wk": (D_MODEL, D_MODEL),
                  "wd": (D_FF, D_MODEL), "lm_head": (D_MODEL, VOCAB)}
 # decode batch 1, 8 and 128 (decode_32k's batch, src/repro/configs/base.py)
 WQ_BATCHES = (1, 8, 128)
+# the weight-only kernel against torch.matmul of the dequantized weight, in
+# turns: the gate projection at decode_32k's batch
+WQ_LIBRARY_TURNS = ("wg", 128)
 L2_BYTES = 50e6  # the H100's L2: a timed weight must not stay in it
 
 
@@ -485,12 +500,12 @@ def bound(a_packed, t, n, rates, *, fused=False,
 
 
 def turns_ms(torch, fns: dict, *, reps=50) -> dict:
-    """``graph_ms`` of two versions of one function in turns (a, b, b, a),
-    each the mean of its two turns: the way two versions are compared on one
-    card."""
-    a, b = fns
-    times = {a: [], b: []}
-    for name in (a, b, b, a):
+    """``graph_ms`` of versions of one function in turns (a, b, b, a; with
+    three a, b, c, c, b, a), each the mean of its two turns: the way
+    versions are compared on one card."""
+    names = list(fns)
+    times = {name: [] for name in names}
+    for name in names + names[::-1]:
         times[name].append(graph_ms(torch, fns[name], reps=reps))
     return {name: sum(v) / len(v) for name, v in times.items()}
 
@@ -1956,6 +1971,15 @@ def phase_wq_timing(torch, card, packed) -> dict:
                  shape=[m, k, n], x_dtype="bfloat16", group=32, ms=ms16,
                  library_bf16_ms=library_bf16_ms, **wq_bound(m, k, n, w_bytes, 2),
                  weight_copies=copies, card=card)
+            if (name, m) == WQ_LIBRARY_TURNS:
+                # the kernel and the two library products of the
+                # dequantized weight (float32, bf16) in turns
+                emit(phase="wq_library_turns", weight=name, shape=[m, k, n],
+                     **turns_ms(torch, {
+                         "wq_gemm_ms": lambda: ops.wq_gemm(x, *next(turn)),
+                         "library_bf16_ms": lambda: torch.matmul(x16, w16),
+                         "library_f32_ms": lambda: torch.matmul(x, w32)}),
+                     card=card)
         del pool, w32, w16
     return out
 
@@ -3221,6 +3245,172 @@ GNN_TRAIN_CLI = ["--arch", "qgtc-gcn", "--smoke", "--int-path", "--steps",
                  "8", "--log-every", "1"]
 GNN_TRAIN_BLOCKS = 4   # --smoke: 8 parts, batches of 4
 LM_100M_CLI = ["--steps", "100"]
+REMAT_MODES = ("none", "dots", "full")
+# the live-storage tracker (perf/roofline.PeakMemory) around a step on the
+# card against the allocator's in-step peak (max_memory_allocated() after
+# the step less memory_allocated() just before it): within this share
+PEAK_TOL = 0.05
+# a kernel's scratch worth naming (the per-op allocator readings)
+SCRATCH_MIN_BYTES = 1 << 20
+META_PEAKS_TIMEOUT_S = 600
+
+
+def meta_peaks() -> None:
+    """The steps of the card's peak checks on ``meta``, in a process of
+    their own holding a world-1 ``fake`` group: phase 18's remat arms and
+    phase 19's plain and sharded codeqwen1.5-7b steps, each under
+    PeakMemory. Prints one JSON line, {name: {"peak_bytes", "top"}}. Run by
+    ``MetaPeaks``; touches no card."""
+    import torch
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    sys.path.insert(0, str(REPO / "src"))
+    from repro_torch import configs
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import lm
+    from repro_torch.perf.roofline import PeakMemory
+    from repro_torch.train import data
+    from repro_torch.train import optimizer as opt
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=1)
+    out = {}
+
+    def peak(name, run):
+        with PeakMemory() as mem:
+            run()
+        out[name] = {"peak_bytes": mem.peak_bytes, "top": mem.top(5)}
+
+    c = LM_TRAIN_CELL
+    base = dataclasses.replace(configs.get(c["arch"]), remat="full")
+    for mode in REMAT_MODES:
+        cfg = dataclasses.replace(base, n_layers=c["remat_layers"], remat=mode)
+        params, _ = lm.init_lm(cfg, device="meta")
+        ostate = opt.adamw_init(params)
+        batch = _lm_to(data.batch_for_arch(cfg, 0, 3, c["batch"], c["seq"],
+                                           device="cpu"), "meta")
+        step = steps.make_train_step(cfg, opt.AdamWConfig(**LM_TRAIN_OPT))
+        peak(f"lm_train_remat/{mode}", lambda: step(params, ostate, batch))
+        del params, ostate
+
+    cfg = dataclasses.replace(configs.get(DIST_ARCH), dtype="float32",
+                              **LM_TRAIN_DEPTH[DIST_ARCH])
+    params, axes = lm.init_lm(cfg, device="meta")
+    batch = _lm_to(data.batch_for_arch(cfg, 0, 0, DIST_TRAIN["batch"],
+                                       DIST_TRAIN["seq"], device="cpu"), "meta")
+    mesh = make_local_mesh()
+    rules = shd.make_rules("train")
+    ps = steps.distribute(params, steps.param_shardings(mesh, rules, axes,
+                                                        params))
+    b_sh = steps.batch_shardings(cfg, mesh, rules)
+    bs = steps.distribute(batch, {k: b_sh[k] for k in batch})
+    step = steps.make_train_step(cfg, opt.AdamWConfig(lr=DIST_TRAIN["lr"]))
+    o1, o2 = opt.adamw_init(params), opt.adamw_init(ps)
+    peak("dist_train_step/plain", lambda: step(params, o1, batch))
+
+    def sharded():
+        with steps.sharded(mesh, rules):
+            step(ps, o2, bs)
+
+    peak("dist_train_step/sharded", sharded)
+    dist.destroy_process_group()
+    print(json.dumps(out), flush=True)
+
+
+class MetaPeaks:
+    """``meta_peaks`` in a subprocess (a fake group cannot share the card's
+    process with its NCCL group), started at once, read when first asked."""
+
+    def __init__(self):
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke; chip_smoke.meta_peaks()"],
+            cwd=str(REPO), env=dict(_src_env(), CUDA_VISIBLE_DEVICES=""),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        self.peaks = None
+
+    def __getitem__(self, name):
+        if self.peaks is None:
+            out, err = self.proc.communicate(timeout=META_PEAKS_TIMEOUT_S)
+            if self.proc.returncode:
+                raise AssertionError(f"meta peaks exited {self.proc.returncode}:"
+                                     f" {err[-3000:]}")
+            self.peaks = json.loads(out.strip().splitlines()[-1])
+        return self.peaks[name]
+
+    def close(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def _kernel_scratch(torch, run) -> dict:
+    """``run()`` with the allocator read around each op: the ops whose
+    kernels peaked above what they returned (scratch they freed before
+    returning, which perf/roofline.PeakMemory cannot see and models in its
+    ``_SCRATCH``), by op: calls, the largest scratch, the bytes and shape of
+    that call's first tensor argument."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    found: dict = {}
+
+    class Reader(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            torch.cuda.reset_peak_memory_stats()
+            out = func(*args, **(kwargs or {}))
+            scratch = (torch.cuda.max_memory_allocated()
+                       - torch.cuda.memory_allocated())
+            if scratch >= SCRATCH_MIN_BYTES:
+                arg = next(a for a in args if isinstance(a, torch.Tensor))
+                r = found.setdefault(str(func), {"calls": 0, "max_bytes": 0})
+                r["calls"] += 1
+                if scratch > r["max_bytes"]:
+                    r.update(max_bytes=scratch, input_shape=list(arg.shape),
+                             input_bytes=arg.numel() * arg.element_size())
+            return out
+
+    with Reader():
+        run()
+    torch.cuda.synchronize()
+    return found
+
+
+def _peak_check(torch, run, what, resident, meta, card):
+    """``run()`` once under PeakMemory on the card, against the allocator's
+    in-step peak (within PEAK_TOL) and the same step's peak on ``meta``
+    (``meta[what]``, equal); beside them what the card held before the step
+    that ``resident`` (the step's arguments) does not, and the allocator's
+    peak of requested bytes (before its rounding). Returns ``run()``'s
+    value."""
+    from repro_torch.launch.dryrun import _local_bytes
+    from repro_torch.perf.roofline import PeakMemory
+
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    requested0 = torch.cuda.memory_stats()["requested_bytes.all.current"]
+    torch.cuda.reset_peak_memory_stats()
+    with PeakMemory() as mem:
+        out = run()
+        torch.cuda.synchronize()
+    allocator = torch.cuda.max_memory_allocated() - before
+    requested = torch.cuda.memory_stats()["requested_bytes.all.peak"] - requested0
+    rel = abs(mem.peak_bytes - allocator) / allocator
+    on_meta = meta[what]
+    args = _local_bytes(resident)
+    emit(phase="peak_check", what=what, tracker_bytes=mem.peak_bytes,
+         allocator_bytes=allocator, allocator_requested_bytes=requested,
+         rel_err=rel, tolerance=PEAK_TOL, meta_bytes=on_meta["peak_bytes"],
+         meta_minus_tracker_bytes=on_meta["peak_bytes"] - mem.peak_bytes,
+         allocated_before_bytes=before, argument_bytes=args,
+         held_beside_arguments_bytes=before - args, top=mem.top(5),
+         meta_top=on_meta["top"], card=card)
+    if rel > PEAK_TOL or on_meta["peak_bytes"] != mem.peak_bytes:
+        raise AssertionError(f"{what}: tracker {mem.peak_bytes} bytes against "
+                             f"the allocator's {allocator} and meta's "
+                             f"{on_meta['peak_bytes']}")
+    return out
 
 
 def _lm_flat(tree, prefix=""):
@@ -3378,9 +3568,10 @@ def _lm_train_timed(torch, cfg, params, ostate, batches):
     return params, ostate, walls, losses
 
 
-def _lm_train_cell(torch, card):
+def _lm_train_cell(torch, card, meta):
     """(c) h2o-danube-3-4b at full width and depth: LM_TRAIN_CELL's steps,
-    a profile, stack[i] against unbind, and the remat modes at 4 layers."""
+    a profile, stack[i] against unbind, and the remat modes at 4 layers,
+    each with one more step under the peak check."""
     from repro_torch import configs
     from repro_torch.launch import steps
     from repro_torch.models import lm
@@ -3459,7 +3650,7 @@ def _lm_train_cell(torch, card):
     torch.cuda.empty_cache()
 
     remat = {}
-    for mode in ("none", "dots", "full"):
+    for mode in REMAT_MODES:
         cfg4 = dataclasses.replace(cfg, n_layers=c["remat_layers"], remat=mode)
         params, _ = lm.init_lm(cfg4, torch.Generator(device=DEVICE)
                                .manual_seed(0), device=DEVICE)
@@ -3472,7 +3663,15 @@ def _lm_train_cell(torch, card):
         remat[mode] = dict(ms_per_step=[x * 1e3 for x in w],
                            peak_memory_gb=torch.cuda.max_memory_allocated()
                            / 1e9)
-        del params, ostate
+        step = steps.make_train_step(cfg4, opt.AdamWConfig(**LM_TRAIN_OPT))
+        _peak_check(torch, lambda: step(params, ostate, batches[3]),
+                    f"lm_train_remat/{mode}", (params, ostate, batches[3]),
+                    meta, card)
+        emit(phase="peak_scratch", what=f"lm_train_remat/{mode}",
+             ops=_kernel_scratch(torch, lambda: step(params, ostate,
+                                                     batches[4])),
+             modeled=sorted(map(str, roofline._SCRATCH)), card=card)
+        del params, ostate, step
         gc.collect()
         torch.cuda.empty_cache()
     emit(phase="lm_train_remat", arch=cfg.name, n_layers=c["remat_layers"],
@@ -3546,15 +3745,17 @@ def _lm_train_launchers(torch, card):
     return launches
 
 
-def phase_lm_training(torch, card):
-    """Phase 18: LM training on the card. Returns the kernel launches of its
-    runs (the GNN launcher's int path)."""
+def phase_lm_training(torch, card, meta=None):
+    """Phase 18: LM training on the card (``meta``: a ``MetaPeaks``, made
+    here when None). Returns the kernel launches of its runs (the GNN
+    launcher's int path)."""
     from repro_torch.kernels import _build
 
     t_phase = time.perf_counter()
+    meta = MetaPeaks() if meta is None else meta
     worst = _lm_train_card_vs_cpu(torch, card)
     _lm_train_full_width(torch, card)
-    _lm_train_cell(torch, card)
+    _lm_train_cell(torch, card, meta)
     _build.reset_launches()
     launches = _lm_train_launchers(torch, card)
     emit(phase="lm_train_done", card_vs_cpu_grad_max_rel_err=worst,
@@ -3621,10 +3822,10 @@ def _dist_leaf_err(torch, got, want) -> float:
     return err
 
 
-def _dist_train_step(torch, mesh, card):
+def _dist_train_step(torch, mesh, card, meta):
     """(a) codeqwen1.5-7b at full width, depth cut as in phase 18, float32:
     the gradients and one train step with DTensor parameters against the
-    plain ones, both on the card."""
+    plain ones, both on the card, each step under the peak check."""
     from repro_torch import configs
     from repro_torch.dist import sharding as shd
     from repro_torch.launch import steps
@@ -3656,20 +3857,33 @@ def _dist_train_step(torch, mesh, card):
     g_err = leaf_err(g2, g1)
     del g1, g2
     step = steps.make_train_step(cfg, opt.AdamWConfig(lr=DIST_TRAIN["lr"]))
+    o1 = opt.adamw_init(params)
+    # each peak check resets the allocator's peak: the phase's is the
+    # largest of the readings before each reset and after the last
+    peaks = [torch.cuda.max_memory_allocated()]
     t0 = time.perf_counter()
-    p1, o1, m1 = step(params, opt.adamw_init(params), batch)
+    p1, o1, m1 = _peak_check(torch, lambda: step(params, o1, batch),
+                             "dist_train_step/plain", (params, o1, batch),
+                             meta, card)
     loss1 = m1["loss"].item()
     plain_s = time.perf_counter() - t0
     del o1
+    o2 = opt.adamw_init(ps)
+    peaks.append(torch.cuda.max_memory_allocated())
+
+    def sharded_step():
+        with steps.sharded(mesh, rules):
+            return step(ps, o2, bs)
+
     t0 = time.perf_counter()
-    with steps.sharded(mesh, rules):
-        p2, o2, m2 = step(ps, opt.adamw_init(ps), bs)
+    p2, o2, m2 = _peak_check(torch, sharded_step, "dist_train_step/sharded",
+                             (ps, o2, bs), meta, card)
     loss2 = _dist_full(m2["loss"]).item()
     sharded_s = time.perf_counter() - t0
     del o2
     loss_err = abs(loss2 - loss1) / abs(loss1)
     p_err = leaf_err(p2, p1)
-    peak = torch.cuda.max_memory_allocated() / 1e9
+    peak = max(peaks + [torch.cuda.max_memory_allocated()]) / 1e9
     del p1, p2, ps, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -3945,6 +4159,8 @@ def _dist_dryrun(torch, card):
         if r["status"] == "OK":
             cell.update(lower_s=r["lower_s"], run_s=r["compile_s"],
                         param_bytes=r["memory"]["param_bytes"],
+                        peak_bytes_est=r["memory"]["peak_bytes_est"],
+                        fits_hbm=r["fits_hbm"],
                         collectives_by_op=r["collectives_by_op"],
                         roofline=r["roofline"])
         else:
@@ -3956,24 +4172,26 @@ def _dist_dryrun(torch, card):
          seconds=time.perf_counter() - t0, card=card)
 
 
-def phase_dist(torch, card):
+def phase_dist(torch, card, meta=None):
     """Phase 19: the dist layer on the card. (a) a world-1 NCCL group over a
     FileStore and make_local_mesh() as (1, 1): the sharded codeqwen and
     rwkv6 train steps, compressed_psum_mean, forward_int under shard_ctx;
-    (b) the dry run on the fake meshes. Returns the kernel launches of
-    (a)'s run under the context."""
+    (b) the dry run on the fake meshes. ``meta``: a ``MetaPeaks`` (made
+    here when None). Returns the kernel launches of (a)'s run under the
+    context."""
     import torch.distributed as dist
 
     from repro_torch.dist import sharding as shd
     from repro_torch.launch.mesh import make_local_mesh
 
     t_phase = time.perf_counter()
+    meta = MetaPeaks() if meta is None else meta
     mesh = make_local_mesh()
     if (dist.get_backend() != "nccl" or mesh.device_type != "cuda"
             or shd.mesh_shape(mesh) != {"data": 1, "model": 1}):
         raise AssertionError(f"local mesh {mesh} on {dist.get_backend()}")
     try:
-        _dist_train_step(torch, mesh, card)
+        _dist_train_step(torch, mesh, card, meta)
         _dist_scan_step(torch, mesh, card)
         _dist_cpsum(torch, card)
         launches = _dist_gnn(torch, mesh, card)
@@ -4106,10 +4324,14 @@ def main() -> int:
         launches[name] += n
     for name, n in phase_lm_serving(torch, card).items():
         launches[name] += n
-    for name, n in phase_lm_training(torch, card).items():
-        launches[name] += n
-    for name, n in phase_dist(torch, card).items():
-        launches[name] += n
+    meta = MetaPeaks()  # on the host's cores while the card works
+    try:
+        for name, n in phase_lm_training(torch, card, meta).items():
+            launches[name] += n
+        for name, n in phase_dist(torch, card, meta).items():
+            launches[name] += n
+    finally:
+        meta.close()
     phase_quickstart(torch, card)
     emit(phase="phase_times", seconds=PHASE_S, card=card)
 

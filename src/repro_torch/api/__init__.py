@@ -15,6 +15,8 @@ the active tuning table's entry for their (op, bits, shape)
 """
 from __future__ import annotations
 
+import warnings
+
 import torch
 
 from repro_torch.api.backend import OPS, Backend, UnsupportedOpError
@@ -28,9 +30,36 @@ __all__ = [
     "Backend", "UnsupportedOpError", "OPS",
     "ExecutionPolicy", "DEFAULT_POLICY", "DEFAULT_BACKEND",
     "register", "get_backend", "list_backends", "use", "set_default",
-    "current", "resolve", "bitserial_mm", "bitserial_mm_packed", "bgemm",
-    "bitpack", "bitserial_fused", "wq_mm",
+    "current", "resolve", "backend_from_impl", "shim_backend",
+    "bitserial_mm", "bitserial_mm_packed", "bgemm", "bitpack",
+    "bitserial_fused", "wq_mm",
 ]
+
+# the reference's legacy impl= strings, onto the port's engines
+_IMPL_ALIASES = {"dot": "torch_dot", "xla_dot": "torch_dot",
+                 "popcount": "popcount", "pallas": "cuda"}
+
+
+def backend_from_impl(impl: str, caller: str) -> str:
+    """Translate a legacy ``impl=`` string to a backend name (deprecated)."""
+    warnings.warn(
+        f"{caller}(impl={impl!r}) is deprecated; use repro_torch.api.use(...) "
+        f"or the backend= keyword instead", DeprecationWarning, stacklevel=3)
+    try:
+        return _IMPL_ALIASES[impl]
+    except KeyError:
+        raise ValueError(f"unknown impl {impl!r} "
+                         f"(expected one of {sorted(_IMPL_ALIASES)})") from None
+
+
+def shim_backend(impl: str | None, backend, caller: str):
+    """The one ``impl=`` deprecation shim for entry points: rejects mixing
+    with ``backend=``, warns, and translates."""
+    if impl is None:
+        return backend
+    if backend is not None:
+        raise ValueError("pass either impl= (deprecated) or backend=, not both")
+    return backend_from_impl(impl, caller)
 
 
 def _jump_kw(be, tiles):

@@ -23,8 +23,9 @@ import torch
 __all__ = [
     "WORD", "pad_to", "bit_decompose", "bit_compose", "pack_along_axis",
     "unpack_along_axis", "pack_a", "pack_b", "popcount32",
-    "popcount_matmul_packed", "bitserial_matmul_packed", "wrap_int32",
-    "np_pack_words",
+    "popcount_matmul_packed", "bitserial_matmul_packed",
+    "bitserial_matmul_planes", "bitserial_matmul", "packing_ratio",
+    "wrap_int32", "np_pack_words",
 ]
 
 WORD = 32
@@ -140,6 +141,51 @@ def bitserial_matmul_packed(a_packed: torch.Tensor,
         for j in range(t):
             acc += _popcount_terms(a_packed[i], b_packed[j]).sum(dim=1) << (i + j)
     return wrap_int32(acc)
+
+
+def bitserial_matmul_planes(aq: torch.Tensor, bq: torch.Tensor, s: int,
+                            t: int) -> torch.Tensor:
+    """Exact int32 matmul of unsigned s-bit x t-bit operands by per-plane
+    products (Eq. 5/6), shifted and summed: one exact integer product per
+    (i, j) bit-plane pair (``api.backends.int_matmul_mod32``, int8 GEMMs
+    on any device)."""
+    from repro_torch.api.backends import int_matmul_mod32
+
+    a_planes, b_planes = bit_decompose(aq, s), bit_decompose(bq, t)
+    acc = torch.zeros((aq.shape[0], bq.shape[1]), dtype=torch.int64,
+                      device=aq.device)
+    for i in range(s):
+        for j in range(t):
+            acc += int_matmul_mod32(a_planes[i], b_planes[j], 1, 1) << (i + j)
+    return wrap_int32(acc)
+
+
+def bitserial_matmul(aq: torch.Tensor, bq: torch.Tensor, s: int, t: int,
+                     impl: str = "dot") -> torch.Tensor:
+    """Deprecated ``impl=`` shim; use ``repro_torch.api.bitserial_mm``.
+
+    ``impl="dot"`` runs ``bitserial_matmul_planes``, ``"popcount"``
+    ``bitserial_matmul_packed``; both return exactly aq @ bq (int32).
+    """
+    import warnings
+
+    warnings.warn(
+        "bitops.bitserial_matmul(impl=...) is deprecated; use "
+        "repro_torch.api.bitserial_mm (registry dispatch) or call "
+        "bitserial_matmul_planes / bitserial_matmul_packed directly",
+        DeprecationWarning,
+        stacklevel=2,
+    )
+    if impl == "popcount":
+        return bitserial_matmul_packed(pack_a(aq, s), pack_b(bq, t))
+    if impl != "dot":
+        raise ValueError(f"unknown impl {impl!r}")
+    return bitserial_matmul_planes(aq, bq, s, t)
+
+
+def packing_ratio(nbits: int, dtype_bits: int = 32) -> float:
+    """Memory compression vs a full-precision tensor (for reporting)."""
+    return dtype_bits / float(nbits)
 
 
 def np_pack_words(bits: np.ndarray) -> np.ndarray:

@@ -105,12 +105,13 @@ def _check_mm(a: BitTensor, b: BitTensor):
             "B packed along K (axis 0, 'row-wise') per Fig. 4")
 
 
-def bitmm2int(a: BitTensor, b: BitTensor, *, backend=None,
-              policy=None) -> torch.Tensor:
+def bitmm2int(a: BitTensor, b: BitTensor, impl: str | None = None, *,
+              backend=None, policy=None) -> torch.Tensor:
     """Any-bitwidth MM with exact int32 output (paper bitMM2Int)."""
     from repro_torch import api
 
     _check_mm(a, b)
+    backend = api.shim_backend(impl, backend, "bitmm2int")
     out = api.bitserial_mm_packed(a.data, b.data, backend=backend,
                                   policy=policy)
     return out[: a.shape[0], : b.shape[1]]
@@ -121,6 +122,7 @@ def bitmm2bit(
     b: BitTensor,
     out_bits: int,
     out_qp: QuantParams | None = None,
+    impl: str | None = None,
     *,
     backend=None,
     policy=None,
@@ -141,6 +143,7 @@ def bitmm2bit(
     from repro_torch import api
 
     _check_mm(a, b)
+    backend = api.shim_backend(impl, backend, "bitmm2bit")
     pol = policy if policy is not None else api.current()[1]
     if pol.fused_requantize and out_qp is not None and out_qp.scale.ndim == 0:
         m, n = a.shape[0], b.shape[1]

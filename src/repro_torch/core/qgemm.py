@@ -23,11 +23,18 @@ __all__ = ["qgemm", "WeightQ", "weight_quantize", "weight_dequantize",
            "wq_matmul"]
 
 
-def qgemm(aq: torch.Tensor, bq: torch.Tensor, s: int, t: int, *,
-          backend=None, policy=None) -> torch.Tensor:
-    """Exact int32 (M,K)@(K,N) over unsigned s-bit x t-bit quantized operands."""
+def qgemm(aq: torch.Tensor, bq: torch.Tensor, s: int, t: int,
+          impl: str | None = None, *, backend=None,
+          policy=None) -> torch.Tensor:
+    """Exact int32 (M,K)@(K,N) over unsigned s-bit x t-bit quantized operands.
+
+    Dispatches through the repro_torch.api registry. ``impl=`` is
+    deprecated; pass ``backend=`` / ``policy=`` or use ``with
+    repro_torch.api.use(...)``.
+    """
     from repro_torch import api
 
+    backend = api.shim_backend(impl, backend, "qgemm")
     return api.bitserial_mm(aq, bq, s, t, backend=backend, policy=policy)
 
 

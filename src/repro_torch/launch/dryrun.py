@@ -15,8 +15,20 @@ For each cell we record, under the reference's keys:
   - status: OK, SKIP (``configs.base.supports``) or FAIL with the error (an
     op DTensor cannot shard, as the reference records a compile failure)
   - memory: per-device argument bytes from the local shard shapes, and the
-    parameter bytes among them; ``temp_bytes`` is null: ``meta`` tensors
-    hold no storage, so the step's peak is not measured
+    parameter bytes among them; the step's peak, measured on rank 0 by
+    ``perf.roofline.PeakMemory`` in the same run as the collectives: every
+    storage an op allocates (a DTensor's local shard, DTensor's own
+    redistributions included) from its birth to its death, meta storages
+    holding no data but their sizes. ``temp_bytes`` is that in-step peak
+    less the step's new outputs (output less alias bytes), so that the
+    reference's ``peak_bytes_est = argument + output + temp - alias`` is
+    the argument bytes plus the in-step peak (plus, for a prefill, the
+    cache that ``lower_cell`` makes before the step); ``peak_top`` the
+    largest storages live at the peak. Not measured: what a kernel
+    allocates and frees inside itself beyond the H100 scratch that
+    ``PeakMemory`` models (a cuBLAS workspace), what the card's allocator
+    adds in rounding, and the other ranks of an uneven split (rank 0 holds
+    the largest shard)
   - cost_hlo_raw: the step's FLOPs per device by ``torch.utils.flop_counter``'s
     formulas (no HLO here): the DTensor ops' on their global shapes over
     the device count, plus the per-rank functions' (``shard_map``: the
@@ -24,8 +36,8 @@ For each cell we record, under the reference's keys:
   - collectives by op from the recorded records (every layer runs once, so
     the trip multipliers are 1; ``scan_trips`` keeps the reference's)
   - the analytic cost (``perf.kernel_cost``), the three roofline terms on
-    the H100's rates, the bottleneck, MODEL_FLOPS, and ``fits_hbm``
-    against the card's 80 GB
+    the H100's rates, the bottleneck, MODEL_FLOPS, and ``fits_hbm``: the
+    measured peak against the card's 80 GB
 
 Usage:
   python -m repro_torch.launch.dryrun --arch minitron-8b --shape train_4k
@@ -54,19 +66,23 @@ import traceback
 __all__ = ["run_cell", "main"]
 
 
-def _local_bytes(tree) -> int:
-    """Bytes of the local shards (DTensors) or whole tensors of a tree of
-    dicts, tuples and lists."""
+def _leaves(tree):
+    """The local shards (DTensors) or whole tensors of a tree of dicts,
+    tuples and lists."""
     from torch.distributed.tensor import DTensor
 
     if isinstance(tree, dict):
-        return sum(_local_bytes(v) for v in tree.values())
-    if isinstance(tree, (tuple, list)):
-        return sum(_local_bytes(v) for v in tree)
-    if not hasattr(tree, "element_size"):
-        return 0
-    t = tree.to_local() if isinstance(tree, DTensor) else tree
-    return t.numel() * t.element_size()
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from _leaves(v)
+    elif hasattr(tree, "element_size"):
+        yield tree.to_local() if isinstance(tree, DTensor) else tree
+
+
+def _local_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
 
 
 def _out_of_time(signum, frame):
@@ -113,13 +129,15 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
         rec["lower_s"] = round(time.time() - t0, 2)
         arg_bytes = _local_bytes(inputs)
         param_bytes = _local_bytes(inputs[0])
+        arg_storages = {t.untyped_storage()._cdata for t in _leaves(inputs)}
         t1 = time.time()
         if timeout_s:
             signal.signal(signal.SIGALRM, _out_of_time)
             signal.alarm(timeout_s)
         flops: dict = {}
+        peak = roofline.PeakMemory()
         try:
-            with roofline.record_collectives(flops) as recs:
+            with roofline.record_collectives(flops, memory=peak) as recs:
                 out = step_fn(*inputs)
         finally:
             if timeout_s:
@@ -146,13 +164,20 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
     else:
         alias = 0
         out_bytes = _local_bytes(out)
+    # the in-step peak holds the step's new outputs (the aliased trees are
+    # updated in place): the rest of it is the reference's temporaries.
+    # An output resident before the step that is no argument (the prefill's
+    # cache, which lower_cell makes and the reference's prefill makes
+    # inside its step) is resident beside the peak.
+    resident_out = sum(
+        t.numel() * t.element_size() for t in _leaves(out)
+        if not peak.born(t) and t.untyped_storage()._cdata not in arg_storages)
+    temp = peak.peak_bytes + resident_out - (out_bytes - alias)
     mem = {"argument_bytes": arg_bytes, "output_bytes": out_bytes,
-           "temp_bytes": None, "alias_bytes": alias,
+           "temp_bytes": temp, "alias_bytes": alias,
            "param_bytes": param_bytes,
-           "peak_bytes_est": arg_bytes + out_bytes - alias,
-           "temp_note": "meta tensors hold no storage: the step's "
-                        "temporaries are not measured, so peak_bytes_est is "
-                        "arguments plus outputs less aliases, a lower bound"}
+           "peak_bytes_est": arg_bytes + out_bytes + temp - alias,
+           "peak_top": peak.top()}
     cost = {"flops": flops["sharded"] / n_dev + float(flops["local"]),
             "bytes_accessed": 0.0, "raw_keys": ["flops"],
             "note": "torch.utils.flop_counter's formulas: DTensor ops on "
@@ -224,6 +249,7 @@ def _worker(args, cells) -> None:
             extra = (f"bottleneck={r['bottleneck']} "
                      f"c={r['compute_s']:.3e}s m={r['memory_s']:.3e}s "
                      f"k={r['collective_s']:.3e}s "
+                     f"peak={rec['memory']['peak_bytes_est'] / 1e9:.2f}GB "
                      f"fits_hbm={rec['fits_hbm']}")
         elif status == "SKIP":
             extra = rec["reason"]

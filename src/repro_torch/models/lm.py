@@ -41,7 +41,9 @@ inputs. The dense, moe, vlm and rwkv6 layers, whisper's encoder and decoder
 layers and every mamba2 layer of the hybrid are remat'd; the hybrid's
 shared attention block is not, as in the reference. Each chunk of the
 cross-entropy is checkpointed whatever ``cfg.remat`` says, so no
-(B, t_chunk, V) float32 logits are kept for backward.
+(B, t_chunk, V) float32 logits are kept for backward; on a mesh its
+log-sum-exp and label logit run per rank (``_VocabParallelCE``), so that
+no storage of it spans the global batch.
 
 Entry points:
 
@@ -69,9 +71,10 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.dist.collectives import all_gather
 from repro_torch.dist.sharding import (AbstractMesh, current_ctx, is_sharded,
                                        logical_spec, mesh_shape, pspec,
-                                       shard_map, sharded)
+                                       shard_map, sharded, spec_of)
 from repro_torch.models import ssm as S
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import (Initializer, constrain, layer_norm,
@@ -321,6 +324,21 @@ def _embed_tokens(params, tokens):
     return constrain(h, "batch", None, None)
 
 
+def _axes_of(entry) -> tuple:
+    """The mesh axes of one spec entry, major to minor."""
+    return () if entry is None else (
+        (entry,) if isinstance(entry, str) else tuple(entry))
+
+
+def _rank_along(mesh, axes) -> int:
+    """This rank's shard index along ``axes`` (major to minor, as the shard
+    order)."""
+    rank = 0
+    for a in axes:
+        rank = rank * mesh_shape(mesh)[a] + mesh.get_local_rank(a)
+    return rank
+
+
 def _embed_sharded(table, tokens, mesh, rules):
     """The lookup as a per-rank function on a mesh: each rank looks up its
     batch rows in its slice of the vocabulary (tokens outside it give 0)
@@ -329,11 +347,8 @@ def _embed_sharded(table, tokens, mesh, rules):
     batch split over two mesh axes in older releases."""
     t_spec = logical_spec(mesh, rules, ("batch", None), tokens.shape)
     e_spec = logical_spec(mesh, rules, ("vocab", None), table.shape)
-    v_axes = () if e_spec[0] is None else (
-        (e_spec[0],) if isinstance(e_spec[0], str) else tuple(e_spec[0]))
-    rank = 0
-    for a in v_axes:  # major to minor, as the shard order
-        rank = rank * mesh_shape(mesh)[a] + mesh.get_local_rank(a)
+    v_axes = _axes_of(e_spec[0])
+    rank = _rank_along(mesh, v_axes)
 
     def local(tab, toks):
         if not v_axes:
@@ -429,15 +444,94 @@ def _head_matrix(params, cfg):
     return params["lm_head"]
 
 
+class _VocabParallelCE(torch.autograd.Function):
+    """(log-sum-exp, label logit) of each row of DTensor logits, (B, T, 1)
+    each, computed per rank with the gradient in the logits' own layout.
+
+    Left to DTensor, the logsumexp of logits split over the vocabulary
+    gathers them (each rank's rows at the whole vocabulary, after a
+    redistribution through the global batch), and the gather's backward is
+    ``grad.new_zeros(logits.shape).scatter_add(...)`` whose zeros are
+    replicated: the global (B, t_chunk, V) on every rank. Here each rank
+    takes the log-sum-exp of its slice of the vocabulary and its label's
+    logit where the label lies in it (0 elsewhere); one all-gather over
+    the vocabulary's axes brings every slice's pair, whose log-sum-exp
+    and sum are the row's (one term of the sum is not 0). The backward is
+    each rank's own: ``g_lse * exp(x - lse)`` (logsumexp's), plus
+    ``g_ll`` at the labels in its slice.
+    """
+
+    @staticmethod
+    def forward(logits, idx):
+        mesh, spec, axes, lo, _ = _vocab_slice(logits)
+        groups = [mesh.get_group(a) for a in axes]
+
+        def local(x, i):
+            lse = torch.logsumexp(x, dim=-1, keepdim=True)
+            ll = _label_logit(x, i, lo, bool(axes))
+            if not groups:
+                return lse, ll
+            both = torch.stack([lse, ll], dim=-1)  # (b, t, 1, 2)
+            for g in groups:
+                both = all_gather(both, g, axis=2)
+            return (torch.logsumexp(both[..., 0], dim=-1, keepdim=True),
+                    both[..., 1].sum(-1, keepdim=True))
+
+        rows = pspec(*spec[:-1], None)
+        return shard_map(local, mesh, in_specs=(spec, rows),
+                         out_specs=(rows, rows))(logits, idx)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        logits, idx = inputs
+        ctx.save_for_backward(logits, idx, output[0])
+
+    @staticmethod
+    def backward(ctx, g_lse, g_ll):
+        logits, idx, lse = ctx.saved_tensors
+        mesh, spec, axes, lo, v_loc = _vocab_slice(logits)
+
+        def local(x, i, lse, g_lse, g_ll):
+            grad = g_lse * (x - lse).exp()
+            if axes:
+                g_ll = torch.where((i >= lo) & (i < lo + v_loc), g_ll, 0.0)
+                i = (i - lo).clamp(0, v_loc - 1)
+            return grad.scatter_add_(-1, i, g_ll)
+
+        rows = pspec(*spec[:-1], None)
+        return shard_map(local, mesh, in_specs=(spec, rows, rows, rows, rows),
+                         out_specs=spec)(logits, idx, lse, g_lse, g_ll), None
+
+
+def _vocab_slice(logits):
+    """(mesh, spec, the vocabulary's mesh axes, first row, rows) of this
+    rank's slice of DTensor logits."""
+    mesh, spec = logits.device_mesh, spec_of(logits)
+    axes = _axes_of(spec[-1])
+    v_loc = logits.to_local().shape[-1]
+    return mesh, spec, axes, _rank_along(mesh, axes) * v_loc, v_loc
+
+
+def _label_logit(x, i, lo: int, split: bool):
+    """x at the labels ``i`` (B, T, 1); on a slice of the vocabulary from
+    row ``lo``, 0 where the label lies outside it."""
+    if not split:
+        return torch.gather(x, -1, i)
+    v_loc = x.shape[-1]
+    got = torch.gather(x, -1, (i - lo).clamp(0, v_loc - 1))
+    return torch.where((i >= lo) & (i < lo + v_loc), got, 0.0)
+
+
 def _ce_chunk(h_i, y_i, head, z_loss: float):
     """(sum of the chunk's token losses, its count of valid labels)."""
     logits = (h_i @ head.to(h_i.dtype)).to(torch.float32)
     logits = constrain(logits, "batch", None, "vocab_act")
-    # the difference is taken before the label dim is dropped: on logits
-    # sharded over the vocabulary the gathered entry is a masked partial
-    # sum, which DTensor reduces only at the gather's own shape
-    lse = torch.logsumexp(logits, dim=-1, keepdim=True)
-    ll = torch.gather(logits, -1, y_i.clamp(min=0)[..., None].long())
+    idx = y_i.clamp(min=0)[..., None].long()
+    if is_sharded(logits):
+        lse, ll = _VocabParallelCE.apply(logits, idx)
+    else:
+        lse = torch.logsumexp(logits, dim=-1, keepdim=True)
+        ll = torch.gather(logits, -1, idx)
     nll = (lse - ll)[..., 0]
     lse = lse[..., 0]
     if z_loss:

@@ -26,14 +26,18 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
+import weakref
 
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.utils._python_dispatch import (TorchDispatchMode,
+                                          is_traceable_wrapper_subclass)
 from torch.utils.flop_counter import flop_registry
 
 __all__ = ["HW", "hbm_bytes", "link_bw", "parse_collectives",
-           "collective_bytes", "record_collectives", "roofline_terms",
-           "model_flops", "RooflineReport"]
+           "collective_bytes", "record_collectives", "PeakMemory",
+           "roofline_terms", "model_flops", "RooflineReport"]
 
 HW = {
     # NVIDIA H100 Tensor Core GPU datasheet, SXM5 column: dense BF16 tensor
@@ -135,6 +139,210 @@ def collective_bytes(records, trips: dict | None = None) -> dict:
     }
 
 
+# ops whose H100 kernels allocate, beyond their outputs, scratch the size
+# of their first argument and free it before they return (torch 2.11,
+# chip_smoke.py's per-op allocator readings at the LM cells' shapes):
+# softmax's backward a copy of its gradient (1 GiB for a float32
+# (2, 32, 1024, 4096) one), logsumexp one of its input
+_SCRATCH = frozenset({torch.ops.aten._softmax_backward_data.default,
+                      torch.ops.aten.logsumexp.default})
+_LIFT_FRESH = torch.ops.aten.lift_fresh.default
+# the dispatch of a tensor with no handler of its own (a plain tensor or a
+# Parameter)
+_PLAIN = torch.Tensor.__torch_dispatch__
+
+
+def _tensors(xs, acc: list) -> list:
+    """``acc`` and the tensors among an op's arguments or outputs (lists
+    and tuples of them included)."""
+    for x in xs:
+        if isinstance(x, torch.Tensor):
+            acc.append(x)
+        elif isinstance(x, (list, tuple)):
+            _tensors(x, acc)
+    return acc
+
+
+def _storages(t, func) -> list:
+    """The storages behind a tensor: a DTensor's local shard's, a wrapper
+    subclass's inner tensors'; none behind a fake tensor (DTensor's
+    sharding propagation runs each op on fake tensors of the global shape
+    first). Raises where there is none to count."""
+    if type(t) is torch.Tensor:
+        return [t.untyped_storage()]
+    if isinstance(t, FakeTensor):
+        return []
+    if is_traceable_wrapper_subclass(t):
+        names, _ = t.__tensor_flatten__()
+        inner = [getattr(t, n) for n in names]
+        return [s for x in inner if isinstance(x, torch.Tensor)
+                for s in _storages(x, func)]
+    try:
+        return [t.untyped_storage()]
+    except (RuntimeError, NotImplementedError) as e:
+        raise TypeError(f"PeakMemory: {func} gave a {t.layout} "
+                        f"{type(t).__name__} with no storage to count") from e
+
+
+class PeakMemory:
+    """The bytes of storage that a window of ops allocates and frees, and
+    their peak: what ``torch.cuda.max_memory_allocated()`` less
+    ``memory_allocated()`` at the window's start reads for the same ops,
+    less the allocator's rounding, on ``meta``, CPU and CUDA tensors alike.
+
+    Fed by ``record_collectives(memory=...)`` (or ``with PeakMemory():``),
+    it sees every op the dispatcher runs in the window:
+
+    - a storage is counted once, when it first comes out of an op without
+      having gone in (a view or an in-place op allocates nothing), and
+      freed when it dies (a weak reference on the storage, whose Python
+      object torch keeps while the storage lives);
+    - a storage that existed before the window (an argument, a module's
+      buffer) is watched from its first use: its death frees its bytes, as
+      the allocator sees a donated leaf replaced by its update;
+    - a DTensor counts by its local shard. DTensor's own dispatch (its
+      redistributions' chunks, copies and collective outputs, its local
+      ops) runs below a mode that handles its ops, which then does not
+      see it (the collective recorder's case): this mode hands a DTensor
+      op back to DTensor, under which its local ops come back here, so
+      those temporaries count too.
+
+    A kernel's own scratch (memory it allocates and frees before it
+    returns) does not come out of the op. The H100's largest, measured
+    there (``_SCRATCH``: softmax's backward, logsumexp), are counted as
+    live while their op runs, on every device, so that ``meta`` reads the
+    card's peak. It does not see other kernels' scratch (a cuBLAS
+    workspace; a reduction's staging buffer, 140 MB in the largest of the
+    LM cell's sums), what C++ code allocates outside the dispatcher, nor
+    ops run on another thread without the mode (autograd's CUDA thread
+    carries it).
+
+    ``peak_bytes`` is the largest net change of the live bytes since the
+    window opened; ``top()`` the largest storages allocated in the window
+    and live at that peak, grouped by (op, local shape, dtype).
+    """
+
+    def __init__(self):
+        self.live = 0
+        self.peak_bytes = 0
+        self._refs: dict = {}     # storage key -> its weak reference
+        self._born: set = set()   # keys of the window's live allocations
+        self._events: list = []   # (key, +-bytes, info or None)
+        self._peak_at = 0
+        self._open = True
+
+    def __enter__(self):
+        self._mode = _Inner(self)
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._mode.__exit__(*exc)
+        self.close()
+
+    # -- bookkeeping (weakref callbacks may run between any two lines) --
+    def _died(self, key, nbytes, ref):
+        if self._open and self._refs.get(key) is ref:
+            del self._refs[key]
+            self._born.discard(key)
+            self._events.append((key, -nbytes, None))
+            self.live -= nbytes
+
+    def _watch(self, st, nbytes, info):
+        key = st._cdata
+        self._refs[key] = weakref.ref(
+            st, functools.partial(self._died, key, st.nbytes()))
+        if nbytes:
+            self._born.add(key)
+            self._events.append((key, nbytes, info))
+            self.live += nbytes
+            if self.live > self.peak_bytes:
+                self.peak_bytes = self.live
+                self._peak_at = len(self._events)
+
+    def _scratch(self, func, arg, nbytes):
+        """A kernel's scratch, live while its op runs: a peak of its own."""
+        if self.live + nbytes > self.peak_bytes:
+            key = ("scratch", len(self._events))
+            self._events.append((key, nbytes, (f"{func} scratch", arg.shape,
+                                               arg.dtype)))
+            self.peak_bytes = self.live + nbytes
+            self._peak_at = len(self._events)
+            self._events.append((key, -nbytes, None))
+
+    def seen(self, func, args, kwargs, out) -> None:
+        """Account one op on plain tensors: its inputs' storages, then its
+        outputs', then its kernel's scratch. ``lift_fresh``'s input is a
+        tensor just made from Python data (``torch.tensor``), outside the
+        dispatcher: it counts as allocated here, not as resident."""
+        refs = self._refs
+        if func is not _LIFT_FRESH:
+            ins = _tensors(args, [])
+            if kwargs:
+                _tensors(kwargs.values(), ins)
+            for t in ins:
+                for st in _storages(t, func):
+                    if st._cdata not in refs:
+                        self._watch(st, 0, None)
+        for t in _tensors((out,), []):
+            for st in _storages(t, func):
+                if st._cdata not in refs and st.nbytes():
+                    self._watch(st, st.nbytes(), (func, t.shape, t.dtype))
+        if func in _SCRATCH:
+            self._scratch(func, args[0],
+                          args[0].numel() * args[0].element_size())
+
+    def born(self, t: torch.Tensor) -> bool:
+        """Whether ``t``'s storages were allocated in the window (asked of
+        a tensor that is still alive)."""
+        return all(st._cdata in self._born for st in _storages(t, "born"))
+
+    def close(self) -> None:
+        """Stop counting; what died until now is counted, nothing after."""
+        self._open = False
+        self._refs.clear()
+
+    def top(self, n: int = 8) -> list[dict]:
+        """The ``n`` largest groups of storages allocated in the window and
+        live at the peak: op, shape, dtype, bytes of one, count."""
+        live: dict = {}
+        for key, nbytes, info in self._events[:self._peak_at]:
+            if nbytes > 0:
+                live[key] = (nbytes, info)
+            else:
+                live.pop(key, None)
+        groups: dict = {}
+        for nbytes, info in live.values():
+            g = groups.setdefault((info, nbytes), [0])
+            g[0] += 1
+        rows = [{"op": str(info[0]), "shape": list(info[1]),
+                 "dtype": str(info[2]), "bytes": nbytes, "count": c[0]}
+                for (info, nbytes), c in groups.items()]
+        return sorted(rows, key=lambda r: -r["bytes"] * r["count"])[:n]
+
+
+class _Inner(TorchDispatchMode):
+    """The memory's mode, below any recording mode: every op on plain
+    tensors is counted here, and a tensor subclass's op (DTensor's) is
+    handed back to the subclass (NotImplemented), whose own ops on its
+    inner tensors (its local ops and redistributions) then come here too.
+    Fake tensors (DTensor's sharding propagation) run through, uncounted."""
+
+    def __init__(self, memory):
+        super().__init__()
+        self.memory = memory
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if any(t.__torch_dispatch__ is not _PLAIN for t in types):
+            if any(not issubclass(t, FakeTensor) for t in types):
+                return NotImplemented
+            return func(*args, **kwargs)
+        out = func(*args, **kwargs)
+        self.memory.seen(func, args, kwargs, out)
+        return out
+
+
 class _Recorder(TorchDispatchMode):
     def __init__(self, records, flops):
         super().__init__()
@@ -166,23 +374,31 @@ class _Recorder(TorchDispatchMode):
 
 
 @contextlib.contextmanager
-def record_collectives(flops: dict | None = None):
+def record_collectives(flops: dict | None = None,
+                       memory: PeakMemory | None = None):
     """Yields a list that fills with ``(op, result_bytes, group)`` for every
-    functional collective dispatched inside the context (DTensor's
-    redistributions and ``torch.distributed._functional_collectives``).
+    functional collective dispatched inside the context: explicit
+    redistributions (``constrain``, ``shard_map``'s inputs) and
+    ``torch.distributed._functional_collectives``. The collectives DTensor
+    issues inside an op's own dispatch (an operand it redistributes to
+    run the op) run below the mode and are not recorded.
 
     ``flops``, a dict, also gathers the FLOPs of every op that
     ``torch.utils.flop_counter`` has a formula for: under ``"sharded"``
     those of DTensor ops, on their global shapes, and under ``"local"``
     those of plain tensors' ops (a per-rank function's, on one rank's
     shards).
+
+    ``memory``, a :class:`PeakMemory`, counts the window's storages as
+    well (DTensor's own dispatch included), in the same run of the ops.
     """
     records: list = []
     if flops is not None:
         flops.setdefault("sharded", 0)
         flops.setdefault("local", 0)
-    with _Recorder(records, flops):
-        yield records
+    with memory if memory is not None else contextlib.nullcontext():
+        with _Recorder(records, flops):
+            yield records
 
 
 def model_flops(n_params: int, n_tokens: int, kind: str = "train",

@@ -56,16 +56,17 @@ def tree_leaves(tree) -> list:
 
 def tree_unflatten(like, leaves) -> dict:
     """``leaves`` (in ``tree_leaves(like)``'s order) in the shape of
-    ``like``."""
-    it = iter(leaves)
+    ``like``. Holds no reference to ``leaves`` once it returns (a nested
+    function calling itself would: its cycle keeps the iterator, and so
+    every leaf, alive until the garbage collector runs)."""
+    return _unflatten(like, iter(leaves))
 
-    def build(t):
-        if not isinstance(t, dict):
-            return next(it)
-        out = {k: build(t[k]) for k in sorted(t)}
-        return {k: out[k] for k in t}
 
-    return build(like)
+def _unflatten(t, it):
+    if not isinstance(t, dict):
+        return next(it)
+    out = {k: _unflatten(t[k], it) for k in sorted(t)}
+    return {k: out[k] for k in t}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1476,3 +1476,47 @@ def test_train_launchers_on_card(cuda_device, tmp_path, capsys):
     assert res["device"].startswith("cuda")
     assert _build.LAUNCHES["bitserial_gemm"] == 2 * \
         chip_smoke.int_launches_per_step(3, 4, 0)
+
+
+@pytest.mark.parametrize("remat", ["none", "dots"])
+def test_peak_memory_tracker_against_the_allocator(cuda_device, remat):
+    """perf/roofline.PeakMemory around one LM train step on the card (h2o-
+    danube-3-4b at full width, 2 layers, 2 x 2048 tokens): within
+    chip_smoke.PEAK_TOL of the allocator's in-step peak
+    (max_memory_allocated() after the step less memory_allocated() just
+    before it), and equal to the same step's peak on meta."""
+    import gc
+
+    from repro_torch import configs
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.perf.roofline import PeakMemory
+    from repro_torch.train import data
+    from repro_torch.train import optimizer as opt
+
+    cfg = dataclasses.replace(configs.get("h2o-danube-3-4b"), n_layers=2,
+                              remat=remat)
+    step = steps.make_train_step(cfg, opt.AdamWConfig(lr=1e-4, grad_clip=1.0))
+    peaks = {}
+    for dev in ("meta", "cuda"):
+        gen = None if dev == "meta" else torch.Generator(
+            device=dev).manual_seed(0)
+        params, _ = lm.init_lm(cfg, gen, device=dev)
+        ostate = opt.adamw_init(params)
+        batches = [{k: v.to(dev) for k, v in data.batch_for_arch(
+            cfg, 0, i, 2, 2048, device="cpu").items()} for i in range(2)]
+        step(params, ostate, batches[0])  # warm: the card's workspaces
+        gc.collect()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        with PeakMemory() as mem:
+            step(params, ostate, batches[1])
+        peaks[dev] = mem.peak_bytes
+        del params, ostate
+    torch.cuda.synchronize()
+    allocator = torch.cuda.max_memory_allocated() - before
+    assert peaks["meta"] == peaks["cuda"]
+    assert abs(peaks["cuda"] - allocator) <= chip_smoke.PEAK_TOL * allocator, \
+        (peaks["cuda"], allocator)

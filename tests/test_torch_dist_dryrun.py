@@ -6,7 +6,8 @@ on the 16-way "model" axis, forward and backward) and rwkv6-1.6b x
 
 Each cell must be ``OK``; its per-device parameter bytes must equal the sum,
 over the leaves, of each leaf's bytes over its shard count under the cell's
-rules (computed here from the sharding trees alone); it must have issued
+rules (computed here from the sharding trees alone); its measured
+temporaries must make the reference's peak formula; it must have issued
 all-reduces with nonzero bytes (tensor parallelism's sums over "model");
 and the report's tables of its records must be the reference renderer's
 strings.
@@ -73,14 +74,17 @@ def test_cell_is_ok_with_its_shard_bytes_and_collectives(records, arch,
     assert r["mesh"] == "16x16" and r["mesh_info"]["n_devices"] == 256
     mem = r["memory"]
     assert mem["param_bytes"] == _param_bytes_by_shards(arch, mode)
-    assert mem["temp_bytes"] is None
+    # the step's temporaries, measured (perf/roofline.PeakMemory)
+    assert isinstance(mem["temp_bytes"], int) and mem["temp_bytes"] > 0
     # the arguments hold the parameters and, training, two moments of
     # the same shards; the donated trees are aliased
     assert mem["argument_bytes"] >= (3 if mode == "train" else 1) * \
         mem["param_bytes"]
     assert mem["peak_bytes_est"] == (mem["argument_bytes"]
                                      + mem["output_bytes"]
+                                     + mem["temp_bytes"]
                                      - mem["alias_bytes"])
+    assert mem["peak_top"] and all(t["bytes"] > 0 for t in mem["peak_top"])
     # tensor parallelism sums the row-parallel products over "model"
     by_op = r["collectives_by_op"]
     assert by_op["all-reduce"]["count"] > 0
