@@ -247,11 +247,14 @@ without printing a result:
      gradient within 1e-4 of its leaf's norm; and each form of the GLA
      (rwkv6's shapes) and SSD (zamba2's) scans against the loop form in
      float64, within 5e-5, the batched no further than twice the loop. (b)
-     launch/dryrun.py as seven subprocesses (codeqwen1.5-7b x train_4k
+     launch/dryrun.py as ten subprocesses (codeqwen1.5-7b x train_4k
      and decode_32k on the fake 16x16 and 2x16x16 groups; whisper-large-v3
-     x train_4k, rwkv6-1.6b x prefill_32k and zamba2-7b x prefill_32k on
-     16x16), every cell OK with its per-device peak, the report's
-     roofline and dry-run tables printed.
+     x train_4k, rwkv6-1.6b x prefill_32k, zamba2-7b x prefill_32k and
+     minitron-8b x prefill_32k on 16x16; rwkv6-1.6b and zamba2-7b x
+     decode_32k on 2x16x16), every cell OK with its per-device peak, each
+     also counted by torch's CommDebugMode in its subprocess (records and
+     counts printed by op, the phase fails where they differ), the
+     report's roofline and dry-run tables printed.
 
   20. Quickstart — ``python -m repro_torch.examples.quickstart`` as a
      subprocess on the card: the §5 tour (to_bit and bitpack, bitmm2int
@@ -3781,7 +3784,12 @@ DIST_DRYRUN = (("codeqwen1.5-7b", "train_4k", ([], ["--multi-pod"])),
                ("codeqwen1.5-7b", "decode_32k", ([], ["--multi-pod"])),
                ("whisper-large-v3", "train_4k", ([],)),
                ("rwkv6-1.6b", "prefill_32k", ([],)),
-               ("zamba2-7b", "prefill_32k", ([],)))
+               ("zamba2-7b", "prefill_32k", ([],)),
+               # the scans' decode steps per rank; a split-KV cache's
+               # writes per rank
+               ("rwkv6-1.6b", "decode_32k", (["--multi-pod"],)),
+               ("zamba2-7b", "decode_32k", (["--multi-pod"],)),
+               ("minitron-8b", "prefill_32k", ([],)))
 # rwkv6 at full width: the per-rank scan on the card (8 chunks of 32)
 DIST_SCAN_ARCH = "rwkv6-1.6b"
 DIST_SCAN_TRAIN = dict(batch=4, seq=256, lr=1e-3)
@@ -4132,7 +4140,7 @@ def _dist_dryrun(torch, card):
         procs = [subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
              "--shape", shape, "--out", out, "--cell-timeout",
-             str(DIST_CELL_TIMEOUT_S), *mp], env=env,
+             str(DIST_CELL_TIMEOUT_S), "--comm-debug", *mp], env=env,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for arch, shape, meshes in DIST_DRYRUN for mp in meshes]
         try:
@@ -4147,6 +4155,18 @@ def _dist_dryrun(torch, card):
     if any(p.returncode for p in procs) or bad or len(recs) != len(procs):
         raise AssertionError(f"dry run: {[r.get('error') for r in bad]} "
                              f"{[log[-1000:] for log in logs]}")
+    # every collective the step issued is recorded: the records by op
+    # against torch's CommDebugMode in the same run
+    for r in recs:
+        c = r["comm_debug"]
+        print(f"comm_debug {r['arch']} x {r['shape']} x {r['mesh']}: "
+              f"records {c['records']} CommDebugMode {c['counts']}",
+              flush=True)
+    unequal = [(r["arch"], r["shape"], r["mesh"], r["comm_debug"])
+               for r in recs if not r["comm_debug"]["equal"]]
+    if unequal:
+        raise AssertionError(f"dry run: records differ from CommDebugMode's "
+                             f"counts: {unequal}")
     for mesh in ("16x16", "2x16x16"):
         print(f"## Roofline ({mesh}, per-device seconds/step, H100 rates)")
         print(report.roofline_table(recs, mesh), flush=True)
@@ -4162,6 +4182,7 @@ def _dist_dryrun(torch, card):
                         peak_bytes_est=r["memory"]["peak_bytes_est"],
                         fits_hbm=r["fits_hbm"],
                         collectives_by_op=r["collectives_by_op"],
+                        comm_debug=r["comm_debug"],
                         roofline=r["roofline"])
         else:
             cell.update(error=r["error"], where=r["traceback"][-600:])

@@ -18,7 +18,8 @@ of them, every other mesh axis ``Replicate()``. A mesh is either a
 is enough to compute specs without ranks. ``constrain`` is the identity
 outside a ``shard_ctx`` and on a plain tensor; on a DTensor inside one it
 redistributes to the resolved placements (the reference's
-``with_sharding_constraint``), an all-gather, a local slice or nothing.
+``with_sharding_constraint``), an all-gather, a local slice or nothing, and
+puts the gradient in the same placements.
 """
 from __future__ import annotations
 
@@ -315,6 +316,29 @@ def logical_spec(mesh, rules, names, shape) -> PartitionSpec:
     return _spec_for(mesh, rules, names, tuple(shape))
 
 
+class _Constrain(torch.autograd.Function):
+    """``x`` redistributed to ``target`` (or ``x`` itself), whose backward
+    redistributes the gradient to the same ``target``: the transpose of the
+    reference's ``with_sharding_constraint``, which puts the constraint on
+    the cotangent too."""
+
+    @staticmethod
+    def forward(x, target):
+        if tuple(x.placements) == target:
+            return x.view_as(x)
+        return x.redistribute(x.device_mesh, target)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.target = inputs[1]
+
+    @staticmethod
+    def backward(ctx, grad):
+        if is_sharded(grad) and tuple(grad.placements) != ctx.target:
+            grad = grad.redistribute(grad.device_mesh, ctx.target)
+        return grad, None
+
+
 def constrain(x: torch.Tensor, *logical_axes):
     """Apply the active sharding rules to ``x`` (one name or None per dim).
 
@@ -322,7 +346,10 @@ def constrain(x: torch.Tensor, *logical_axes):
     DTensor inside one, each logical name is resolved through the context's
     rule table (dims whose mesh axis does not divide their size stay
     replicated) and ``x`` is redistributed to those placements on its own
-    mesh; autograd runs the inverse collective in backward.
+    mesh. As the reference's ``with_sharding_constraint``, the constraint
+    holds for the gradient too: under autograd the gradient that comes
+    back is redistributed to the same placements, whatever layout DTensor
+    gave it.
     """
     ctx = current_ctx()
     if ctx is None:
@@ -336,6 +363,8 @@ def constrain(x: torch.Tensor, *logical_axes):
     mesh, rules = ctx
     spec = _spec_for(mesh, rules, logical_axes, tuple(x.shape))
     target = placements(x.device_mesh, spec)
+    if x.requires_grad and torch.is_grad_enabled():
+        return _Constrain.apply(x, target)
     if tuple(x.placements) == target:
         return x
     return x.redistribute(x.device_mesh, target)
@@ -412,23 +441,49 @@ def flatten(x: torch.Tensor, dim: int) -> torch.Tensor:
 
 def write_along(dst: torch.Tensor, dim: int, index, src: torch.Tensor) -> None:
     """``dst[..., index, ...] = src`` along ``dim``, in place; ``index`` is a
-    slice or a 1-d index tensor.
+    slice of host ints or a 1-d index tensor of distinct positions.
 
     On a DTensor sharded along ``dim`` (a split-KV cache's sequence) each
-    rank writes the positions it holds, through a masked select: DTensor
-    cannot write in place across the shards of a dim.
+    rank writes the positions its shard holds into its local shard, in
+    O(len(index)) (DTensor cannot write in place across the shards of a
+    dim): ``src`` is first laid out as ``dst`` but whole along ``dim``.
     """
     if not _sharded_along(dst, dim):
         dst[(slice(None),) * dim + (index,)] = src
         return
-    n = dst.shape[dim]
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    mesh = dst.device_mesh
+    place = [Replicate() if isinstance(p, Shard) and p.dim == dim else p
+             for p in dst.placements]
+    if not is_sharded(src):
+        src = DTensor.from_local(src, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    src = src.redistribute(mesh, place).to_local()
+    shape, offset = compute_local_shape_and_global_offset(
+        dst.shape, mesh, dst.placements)
+    n, off = shape[dim], offset[dim]
+    loc = dst.to_local()
     if isinstance(index, slice):
-        index = torch.arange(index.start, index.stop, device=dst.device)
-    eq = torch.arange(n, device=index.device)[:, None] == index[None, :]
-    shape = [1] * dst.ndim
-    shape[dim] = n
-    vals = src.index_select(dim, eq.to(torch.int64).argmax(1))
-    dst.copy_(torch.where(eq.any(1).reshape(shape), vals, dst))
+        lo, hi = max(index.start, off), min(index.stop, off + n)
+        if hi > lo:
+            loc.narrow(dim, lo - off, hi - lo).copy_(
+                src.narrow(dim, lo - index.start, hi - lo))
+        return
+    at = index - off
+    mine = (at >= 0) & (at < n)
+    # an entry this rank does not hold repeats its first one that it does
+    # (the same position, the same value), so that index_copy_ writes
+    # every position once whatever its order; a rank that holds none
+    # writes its position 0's own value back
+    first = mine.to(torch.int8).argmax()
+    j = torch.where(mine, torch.arange(len(index), device=index.device),
+                    first)
+    held = mine.any()
+    vals = torch.where(held, src.index_select(dim, j), loc.narrow(dim, 0, 1))
+    loc.index_copy_(dim, torch.where(held, at[j], 0), vals)
 
 
 class _SumOver(torch.autograd.Function):

@@ -7,9 +7,12 @@ host devices, the port runs the cell's step once on a ``fake`` process
 group of 256 (16x16) or 512 (2x16x16) ranks, with DTensor parameters,
 optimizer state, batch and cache on the ``meta`` device: every op computes
 its local shard's shape and every redistribution issues its collective,
-recorded as it goes (``perf.roofline.record_collectives``). The fake group
-lives in a subprocess of its own, so it never shares a default group with a
-real one.
+recorded as it goes (``perf.roofline.record_collectives``): the explicit
+ones and those DTensor issues inside an op's own dispatch, every
+collective the step issues, as XLA's post-SPMD HLO holds every one the
+reference counts (``--comm-debug`` checks the records against torch's
+``CommDebugMode``). The fake group lives in a subprocess of its own, so it
+never shares a default group with a real one.
 
 For each cell we record, under the reference's keys:
   - status: OK, SKIP (``configs.base.supports``) or FAIL with the error (an
@@ -34,7 +37,9 @@ For each cell we record, under the reference's keys:
     the device count, plus the per-rank functions' (``shard_map``: the
     attention core, the scans, the expert dispatch) on one rank's shards
   - collectives by op from the recorded records (every layer runs once, so
-    the trip multipliers are 1; ``scan_trips`` keeps the reference's)
+    the trip multipliers are 1; ``scan_trips`` keeps the reference's);
+    with ``--comm-debug``, ``comm_debug``: ``CommDebugMode``'s counts by
+    op beside the records', and whether they are equal
   - the analytic cost (``perf.kernel_cost``), the three roofline terms on
     the H100's rates, the bottleneck, MODEL_FLOPS, and ``fits_hbm``: the
     measured peak against the card's 80 GB
@@ -53,6 +58,7 @@ take many minutes on a CPU.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -85,6 +91,23 @@ def _local_bytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in _leaves(tree))
 
 
+def _comm_counts(comm, records) -> dict:
+    """``CommDebugMode``'s counts and the records' by op (the roofline's op
+    names; a c10d op it counts that has none keeps its own), and whether
+    they are equal."""
+    from repro_torch.perf import roofline
+
+    debug: dict = {}
+    for op, n in comm.get_comm_counts().items():
+        name = getattr(op, "__name__", str(op))
+        name = roofline.op_name(name) or name
+        debug[name] = debug.get(name, 0) + n
+    recorded: dict = {}
+    for op, _, _ in records:
+        recorded[op] = recorded.get(op, 0) + 1
+    return {"counts": debug, "records": recorded, "equal": debug == recorded}
+
+
 def _out_of_time(signum, frame):
     raise TimeoutError("the step did not finish in its time budget "
                        "(--cell-timeout)")
@@ -94,12 +117,17 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
              q_chunk: int = 1024, t_chunk: int = 512,
              save_hlo: str | None = None, zero3: bool = False,
              kv_bits: int = 0, n_micro: int = 1,
-             timeout_s: int = 0) -> dict:
+             timeout_s: int = 0, comm_debug: bool = False) -> dict:
     """One cell on the default (fake) process group's production mesh.
 
     ``timeout_s`` > 0 bounds the step's run (main thread only): past it the
     cell is recorded FAIL with a ``TimeoutError`` and where it stood.
+    ``comm_debug`` also runs the step under torch's ``CommDebugMode``
+    (below the recorder, so it sees the same dispatches) and records its
+    counts by op beside the records' (``comm_debug``).
     """
+    from torch.distributed.tensor.debug import CommDebugMode
+
     from repro_torch import configs
     from repro_torch.configs.base import SHAPES, supports
     from repro_torch.launch import steps
@@ -136,8 +164,10 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
             signal.alarm(timeout_s)
         flops: dict = {}
         peak = roofline.PeakMemory()
+        comm = CommDebugMode() if comm_debug else None
         try:
-            with roofline.record_collectives(flops, memory=peak) as recs:
+            with comm or contextlib.nullcontext(), \
+                    roofline.record_collectives(flops, memory=peak) as recs:
                 out = step_fn(*inputs)
         finally:
             if timeout_s:
@@ -187,6 +217,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
                                          t_chunk=t_chunk)
     trips["micro_scan"] = n_micro
     coll = roofline.collective_bytes(recs)
+    if comm is not None:
+        rec["comm_debug"] = _comm_counts(comm, recs)
     if save_hlo:
         pathlib.Path(save_hlo).write_text(
             "\n".join(f"{op} {size} {g}" for op, size, g in recs) + "\n")
@@ -240,7 +272,8 @@ def _worker(args, cells) -> None:
         rec = run_cell(arch, shape, multi_pod=mp, q_chunk=args.q_chunk,
                        t_chunk=args.t_chunk, save_hlo=args.save_hlo,
                        zero3=args.zero3, kv_bits=args.kv_bits,
-                       n_micro=args.n_micro, timeout_s=args.cell_timeout)
+                       n_micro=args.n_micro, timeout_s=args.cell_timeout,
+                       comm_debug=args.comm_debug)
         (out_dir / _cell_name(args.tag, arch, shape, mp)).write_text(
             json.dumps(rec, indent=1))
         status = rec["status"]
@@ -251,6 +284,8 @@ def _worker(args, cells) -> None:
                      f"k={r['collective_s']:.3e}s "
                      f"peak={rec['memory']['peak_bytes_est'] / 1e9:.2f}GB "
                      f"fits_hbm={rec['fits_hbm']}")
+            if "comm_debug" in rec:
+                extra += f" comm_debug_equal={rec['comm_debug']['equal']}"
         elif status == "SKIP":
             extra = rec["reason"]
         else:
@@ -278,6 +313,9 @@ def _parser():
     ap.add_argument("--cell-timeout", type=int, default=0,
                     help="seconds a cell's step may run before it is "
                          "recorded FAIL (0: no bound)")
+    ap.add_argument("--comm-debug", action="store_true",
+                    help="also count each cell's collectives with torch's "
+                         "CommDebugMode and record both counts")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     return ap
 

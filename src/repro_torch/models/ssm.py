@@ -280,7 +280,8 @@ def ssd_step(x_t, a_t, b_t, c_t, s):
 
 def _scan(scan, per_rank, args, names, state_at: int):
     """``scan(*args)`` -> (out (B, T, H, X), final state); on a mesh,
-    ``per_rank`` on each rank's shards.
+    ``per_rank`` on each rank's shards. A decode step (``gla_step``,
+    ``ssd_step``: out (B, H, X)) runs the same way, itself per rank.
 
     Off a mesh (no shard context, an ``AbstractMesh``, or no DTensor among
     ``args``) it is ``scan(*args)``. Under a shard context with DTensor
@@ -439,7 +440,11 @@ def rwkv6_block_step(p, x, state, cfg: ModelConfig):
     dtype = x.dtype
     xn = layer_norm(x[:, None], p["ln1_w"], p["ln1_b"])[:, 0].to(F32)
     r, k, v, g, lw = _rwkv_time_mix(p, xn, state["x_t"], cfg)
-    wkv, s = gla_step(r, k, v, lw, p["u"].to(F32), state["s"])
+    tok = ("batch", "heads", None)
+    wkv, s = _scan(gla_step, gla_step,
+                   (r, k, v, lw, p["u"].to(F32), state["s"]),
+                   (tok, tok, tok, tok, ("heads", None),
+                    ("batch", "heads", None, None)), state_at=5)
     x = x + _rwkv_out(p, wkv, g, cfg, dtype)
     xn2 = layer_norm(x[:, None], p["ln2_w"], p["ln2_b"])[:, 0].to(F32)
     x = x + _rwkv_channel_mix(p, xn2, state["x_c"]).to(dtype)
@@ -525,6 +530,13 @@ def _ssd_grouped(x, a_log, B, C, s0, chunk: int):
     return ssd_chunked(x, a_log, _to_heads(B, h), _to_heads(C, h), s0, chunk)
 
 
+def _ssd_step_grouped(x_t, a_t, B, C, s):
+    """``ssd_step`` with B and C (B, N) of the single group, broadcast here
+    to x_t's heads."""
+    h = x_t.shape[1]
+    return ssd_step(x_t, a_t, _to_heads(B, h), _to_heads(C, h), s)
+
+
 def _gated_rmsnorm(y, z, w):
     y = y * F.silu(z)
     # over heads split over the tensor-parallel axis the sum of squares is
@@ -588,8 +600,11 @@ def mamba2_block_step(p, x, state, cfg: ModelConfig):
     xbc = torch.einsum("bkw,kw->bw", window, p["conv_w"].to(F32)) \
         + p["conv_b"].to(F32)
     xh, a_log_t, B, C, _ = _mamba_ssm(p, xbc, dt, cfg)
-    y, s = ssd_step(xh, a_log_t, _to_heads(B, nh), _to_heads(C, nh),
-                    state["s"])
+    y, s = _scan(_ssd_step_grouped, _ssd_step_grouped,
+                 (xh, a_log_t, B, C, state["s"]),
+                 (("batch", "heads", None), ("batch", "heads"),
+                  ("batch", None), ("batch", None),
+                  ("batch", "heads", None, None)), state_at=4)
     y = y + p["d_skip"].to(F32)[:, None] * xh
     y = _gated_rmsnorm(y.reshape(b, d_in), z, p["norm_w"])
     x = x + (y @ p["out_proj"].to(F32)).to(dtype)

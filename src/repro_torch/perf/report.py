@@ -9,9 +9,11 @@ function's output lies.
 
 The dry-run renderers (``load``, ``roofline_table``, ``dryrun_table``)
 turn ``launch/dryrun.py``'s JSON records into the reference's tables, the
-same strings for the same records.
+same strings for the same records; ``compare_table`` sets two runs' records
+side by side, cell by cell.
 
 Usage:  PYTHONPATH=src python -m repro_torch.perf.report results/dryrun
+        PYTHONPATH=src python -m repro_torch.perf.report --compare A B
 """
 from __future__ import annotations
 
@@ -24,7 +26,8 @@ import time
 import torch
 
 __all__ = ["percentile", "latency_summary", "bench_median", "time_ms",
-           "graph_ms", "load", "roofline_table", "dryrun_table"]
+           "graph_ms", "load", "roofline_table", "dryrun_table",
+           "compare_table"]
 
 
 def time_ms(torch, fn, *, warmup=3, reps=10, repeats=5) -> float:
@@ -203,7 +206,52 @@ def dryrun_table(recs: list[dict]) -> str:
     return "\n".join(rows)
 
 
+def _by_op(r: dict) -> str:
+    return " ".join(f"{k.split('-')[-1]} {v['count']}/"
+                    f"{v['result_bytes'] / 1e9:.3f}"
+                    for k, v in sorted(r["collectives_by_op"].items()))
+
+
+def compare_table(before: list[dict], after: list[dict]) -> str:
+    """Two dry runs' records cell by cell (``before`` -> ``after``): the
+    collectives by op (count / result GB a device), the collective term,
+    the bottleneck, the peak and ``fits_hbm``, whether FLOPs and parameter
+    bytes are equal, and whether each run's records equal its
+    ``CommDebugMode`` counts (``--comm-debug``; "-" where not counted)."""
+    rows = ["| arch | shape | mesh | status | collectives (count/GB) | "
+            "collective s | bottleneck | peak GB | fits | flops, params "
+            "equal | records = CommDebugMode |",
+            "|---|---|---|---|---|---|---|---|---|---|---|"]
+    old = {(r["arch"], r["shape"], r["mesh"]): r for r in before}
+    for r in after:
+        b = old.get((r["arch"], r["shape"], r["mesh"]))
+        cell = f"| {r['arch']} | {r['shape']} | {r['mesh']} | "
+        if b is None or (b["status"], r["status"]) != ("OK", "OK"):
+            rows.append(cell + f"{b and b['status']} -> {r['status']} |"
+                        + " - |" * 7)
+            continue
+
+        def pair(f):
+            return f"{f(b)} -> {f(r)}"
+
+        rows.append(cell + "OK | " + " | ".join([
+            pair(_by_op),
+            pair(lambda x: f"{x['roofline']['collective_s']:.3f}"),
+            pair(lambda x: x["roofline"]["bottleneck"]),
+            pair(lambda x: f"{x['memory']['peak_bytes_est'] / 1e9:.2f}"),
+            pair(lambda x: "Y" if x["fits_hbm"] else "N"),
+            "Y" if (b["cost_hlo_raw"]["flops"], b["memory"]["param_bytes"])
+            == (r["cost_hlo_raw"]["flops"], r["memory"]["param_bytes"])
+            else "N",
+            pair(lambda x: "Y" if x.get("comm_debug", {}).get("equal")
+                 else "-" if "comm_debug" not in x else "N")]) + " |")
+    return "\n".join(rows)
+
+
 def main():
+    if len(sys.argv) > 3 and sys.argv[1] == "--compare":
+        print(compare_table(load(sys.argv[2]), load(sys.argv[3])))
+        return
     d = sys.argv[1] if len(sys.argv) > 1 else "results/dryrun"
     recs = load(d)
     print("## Roofline (single-pod 16x16, per-device seconds/step)\n")

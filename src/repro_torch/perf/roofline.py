@@ -36,7 +36,7 @@ from torch.utils._python_dispatch import (TorchDispatchMode,
 from torch.utils.flop_counter import flop_registry
 
 __all__ = ["HW", "hbm_bytes", "link_bw", "parse_collectives",
-           "collective_bytes", "record_collectives", "PeakMemory",
+           "collective_bytes", "record_collectives", "op_name", "PeakMemory",
            "roofline_terms", "model_flops", "RooflineReport"]
 
 HW = {
@@ -67,6 +67,12 @@ _OPS = {
     "all_to_all_single": "all-to-all",
     "broadcast": "collective-permute",
 }
+
+
+def op_name(name: str) -> str | None:
+    """The reference's op name of a functional collective (its packet's
+    name, e.g. ``"all_gather_into_tensor"``), or None."""
+    return _OPS.get(name)
 
 
 def hbm_bytes() -> float:
@@ -203,7 +209,7 @@ class PeakMemory:
     - a DTensor counts by its local shard. DTensor's own dispatch (its
       redistributions' chunks, copies and collective outputs, its local
       ops) runs below a mode that handles its ops, which then does not
-      see it (the collective recorder's case): this mode hands a DTensor
+      see it (the FLOP counter's case): this mode hands a DTensor
       op back to DTensor, under which its local ops come back here, so
       those temporaries count too.
 
@@ -232,7 +238,7 @@ class PeakMemory:
         self._open = True
 
     def __enter__(self):
-        self._mode = _Inner(self)
+        self._mode = _Inner(memory=self)
         self._mode.__enter__()
         return self
 
@@ -322,15 +328,19 @@ class PeakMemory:
 
 
 class _Inner(TorchDispatchMode):
-    """The memory's mode, below any recording mode: every op on plain
-    tensors is counted here, and a tensor subclass's op (DTensor's) is
-    handed back to the subclass (NotImplemented), whose own ops on its
-    inner tensors (its local ops and redistributions) then come here too.
-    Fake tensors (DTensor's sharding propagation) run through, uncounted."""
+    """The mode below any FLOP counter: every op on plain tensors comes
+    here, and a tensor subclass's op (DTensor's) is handed back to the
+    subclass (NotImplemented), whose own ops on its inner tensors (its
+    local ops and redistributions) then come here too. It appends every
+    functional collective to ``records`` (explicit ones and those DTensor
+    issues inside an op's dispatch alike) and, given a ``memory``, counts
+    every op's storages. Fake tensors (DTensor's sharding propagation) run
+    through, unseen."""
 
-    def __init__(self, memory):
+    def __init__(self, memory=None, records=None):
         super().__init__()
         self.memory = memory
+        self.records = records
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -339,37 +349,49 @@ class _Inner(TorchDispatchMode):
                 return NotImplemented
             return func(*args, **kwargs)
         out = func(*args, **kwargs)
-        self.memory.seen(func, args, kwargs, out)
+        if self.memory is not None:
+            self.memory.seen(func, args, kwargs, out)
+        if self.records is not None:
+            _record(self.records, func, args, kwargs, out)
         return out
 
 
-class _Recorder(TorchDispatchMode):
-    def __init__(self, records, flops):
+def _record(records, func, args, kwargs, out) -> None:
+    """Append ``(op, result_bytes, group)`` where ``func`` is a functional
+    collective."""
+    pkt = func.overloadpacket
+    if not (getattr(pkt, "_qualified_op_name", "").startswith(
+            "_c10d_functional::") and pkt.__name__ in _OPS):
+        return
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    group = args[-1] if isinstance(args[-1], str) else kwargs.get("group_name")
+    g = _resolve_process_group(group).size()
+    res = out if isinstance(out, (list, tuple)) else [out]
+    records.append((_OPS[pkt.__name__],
+                    sum(t.numel() * t.element_size() for t in res), g))
+
+
+class _Flops(TorchDispatchMode):
+    """The mode above ``_Inner``: it sees the ops the step itself calls, a
+    DTensor op once (its sharding propagation and local ops run below it),
+    and adds the FLOPs of each that ``torch.utils.flop_counter`` has a
+    formula for."""
+
+    def __init__(self, flops):
         super().__init__()
-        self.records = records
         self.flops = flops
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         pkt = func.overloadpacket
-        if self.flops is not None and pkt in flop_registry:
+        if pkt in flop_registry:
             from repro_torch.dist.sharding import is_sharded
 
             key = "sharded" if any(map(is_sharded, args)) else "local"
             self.flops[key] += flop_registry[pkt](*args, **kwargs,
                                                   out_val=out)
-        if getattr(pkt, "_qualified_op_name", "").startswith(
-                "_c10d_functional::") and pkt.__name__ in _OPS:
-            from torch.distributed.distributed_c10d import \
-                _resolve_process_group
-
-            group = args[-1] if isinstance(args[-1], str) else kwargs.get(
-                "group_name")
-            g = _resolve_process_group(group).size()
-            res = out if isinstance(out, (list, tuple)) else [out]
-            size = sum(t.numel() * t.element_size() for t in res)
-            self.records.append((_OPS[pkt.__name__], size, g))
         return out
 
 
@@ -378,16 +400,17 @@ def record_collectives(flops: dict | None = None,
                        memory: PeakMemory | None = None):
     """Yields a list that fills with ``(op, result_bytes, group)`` for every
     functional collective dispatched inside the context: explicit
-    redistributions (``constrain``, ``shard_map``'s inputs) and
-    ``torch.distributed._functional_collectives``. The collectives DTensor
-    issues inside an op's own dispatch (an operand it redistributes to
-    run the op) run below the mode and are not recorded.
+    redistributions (``constrain``, ``shard_map``'s inputs),
+    ``torch.distributed._functional_collectives``, and the collectives
+    DTensor issues inside an op's own dispatch (an operand it redistributes
+    to run the op): each once, as ``CommDebugMode`` counts them.
 
     ``flops``, a dict, also gathers the FLOPs of every op that
     ``torch.utils.flop_counter`` has a formula for: under ``"sharded"``
     those of DTensor ops, on their global shapes, and under ``"local"``
-    those of plain tensors' ops (a per-rank function's, on one rank's
-    shards).
+    those of plain tensors' ops that the window itself calls (a per-rank
+    function's, on one rank's shards); the local ops DTensor runs beneath
+    its own ops are not counted again.
 
     ``memory``, a :class:`PeakMemory`, counts the window's storages as
     well (DTensor's own dispatch included), in the same run of the ops.
@@ -396,9 +419,14 @@ def record_collectives(flops: dict | None = None,
     if flops is not None:
         flops.setdefault("sharded", 0)
         flops.setdefault("local", 0)
-    with memory if memory is not None else contextlib.nullcontext():
-        with _Recorder(records, flops):
-            yield records
+    try:
+        with _Inner(memory, records):
+            with (_Flops(flops) if flops is not None
+                  else contextlib.nullcontext()):
+                yield records
+    finally:
+        if memory is not None:
+            memory.close()
 
 
 def model_flops(n_params: int, n_tokens: int, kind: str = "train",

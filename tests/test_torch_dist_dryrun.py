@@ -9,8 +9,9 @@ over the leaves, of each leaf's bytes over its shard count under the cell's
 rules (computed here from the sharding trees alone); its measured
 temporaries must make the reference's peak formula; it must have issued
 all-reduces with nonzero bytes (tensor parallelism's sums over "model");
-and the report's tables of its records must be the reference renderer's
-strings.
+its records must equal torch's ``CommDebugMode`` counts op by op
+(``--comm-debug``, in the same run); and the report's tables of its
+records must be the reference renderer's strings.
 """
 import json
 import subprocess
@@ -34,7 +35,7 @@ def records(tmp_path_factory):
     out = tmp_path_factory.mktemp("dryrun")
     procs = [subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-         "--shape", shape, "--out", str(out)],
+         "--shape", shape, "--out", str(out), "--comm-debug"],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for arch, shape, _ in CELLS]
     logs = [p.communicate(timeout=300)[0] for p in procs]
@@ -95,6 +96,15 @@ def test_cell_is_ok_with_its_shard_bytes_and_collectives(records, arch,
     assert rl["bottleneck"] in ("compute", "memory", "collective")
     assert rl["compute_s"] > 0 and rl["memory_s"] > 0
     assert r["fits_hbm"] is True and r["n_params"] > MIN_PARAMS[arch]
+
+
+@pytest.mark.parametrize("arch,shape,mode", CELLS)
+def test_records_equal_comm_debug_mode(records, arch, shape, mode):
+    r = records[(arch, shape)]
+    c = r["comm_debug"]
+    assert c["equal"] and c["records"] == c["counts"], c
+    assert c["records"] == {op: v["count"] for op, v in
+                            r["collectives_by_op"].items()}
 
 
 def test_the_report_renders_the_records_as_the_reference(records):

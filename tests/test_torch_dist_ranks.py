@@ -72,7 +72,10 @@ still pass.
   within 1e-6 of AdamW applied, unsharded, to the gathered sharded
   gradients (as for minitron above); under the serve rules the prefill's
   logits within 1e-5 of the unsharded prefill's, relative to their
-  largest element. The two scan models' gradients sit at float32 noise
+  largest element, and for rwkv6 and zamba2 three decode steps after it
+  (``gla_step`` and ``ssd_step`` run per rank through ``ssm._scan``), each
+  step's logits within 1e-5 of the unsharded steps'. The two scan models'
+  gradients sit at float32 noise
   near 1e-5 of their largest element: unsharded, in one process, their
   gradients move by up to 1.4e-5 (zamba2) and 3e-6 (rwkv6) when only the
   scan's backward summation order changes (the loop over chunks against
@@ -81,6 +84,10 @@ still pass.
   sequences 64, 96 and 160 (codeqwen's and the whisper-shaped case's
   stay near 1e-6). ``test_scan_models_gradient_noise`` measures the first
   figure;
+- ``dist.sharding.write_along`` into a cache split along its sequence
+  over "model" (and its positions), each rank writing the positions it
+  holds: a slice across the shards and inside one, a ring index that
+  wraps, a position one rank holds, bit-equal to the unsharded write;
 - the DTensor ops one sharded rwkv6 layer dispatches, forward and
   backward (a ``TorchDispatchMode`` counting the dispatches that take a
   DTensor): the same count at sequences of 64 and 128 (2 and 4 chunks),
@@ -111,7 +118,10 @@ PARAM_RTOL = 1e-6
 # rwkv6 and zamba2: the float32 noise of their own backward (docstring)
 SCAN_GRAD_RTOL = 5e-5
 LM_CASES = ("uneven_heads", "rwkv6", "zamba2")
-LM_RUN = dict(batch=4, seq=160, prompt=24)
+LM_RUN = dict(batch=4, seq=160, prompt=24, decode=3)
+# the scan models' decode steps (models/ssm.py gla_step, ssd_step) run per
+# rank on a mesh
+DECODE_FAMILIES = ("ssm_rwkv6", "hybrid_mamba2")
 OP_SEQS = (64, 128)
 
 
@@ -142,6 +152,12 @@ def _lm_batch(cfg):
 
     return data.batch_for_arch(cfg, 0, 0, LM_RUN["batch"], LM_RUN["seq"],
                                device="cpu")
+
+
+def _decode_after_prompt(batch):
+    """The tokens that follow the prompt, one a decode step."""
+    n = LM_RUN["prompt"]
+    return batch["tokens"][:, n:n + LM_RUN["decode"]]
 
 
 def _prefill_batch(batch):
@@ -349,6 +365,8 @@ def _rank_main(rank, store_dir, cases):
             got = gnn.forward_int(params, art, cfg)
     out["gnn"] = (want, got)
 
+    out["write_along"] = _write_along_on_mesh(mesh)
+
     # the dry run's open cells at smoke width: uneven heads and the scans
     for name in LM_CASES:
         out[f"lm_{name}"] = _lm_on_mesh(mesh, cases["lm"][name], on_mesh,
@@ -373,6 +391,48 @@ def _rank_main(rank, store_dir, cases):
     dist.destroy_process_group()
 
 
+# dist.sharding.write_along on a (B, S, H, D) cache split over "data" by
+# rows and over "model" along its S = 16 positions (8 a rank), and on its
+# (S,) positions: a slice across the two shards, a slice inside one, a ring
+# index that wraps, and one position that only one "model" rank holds
+WRITES = {"slice": slice(5, 12), "slice_in_one": slice(9, 11),
+          "ring": [14, 15, 0, 1, 2], "one": [9]}
+
+
+def _write_along_on_mesh(mesh) -> dict:
+    """Each write into a sharded cache, gathered, beside the same write
+    into the unsharded cache."""
+    from repro_torch.dist import sharding as shd
+
+    g = torch.Generator().manual_seed(5)
+    base = torch.randn((4, 16, 4, 2), generator=g)
+    pos = torch.arange(16, dtype=torch.int32)
+    cache_sh = shd.NamedSharding(mesh, shd.pspec("data", "model", None, None))
+    src_sh = shd.NamedSharding(mesh, shd.pspec("data", None, "model", None))
+    rules = shd.make_rules("serve", context_parallel=True)
+    out = {}
+    for name, index in WRITES.items():
+        t = len(range(16)[index]) if isinstance(index, slice) else len(index)
+        if not isinstance(index, slice):
+            index = torch.tensor(index)
+        src = torch.randn((4, t, 4, 2), generator=g)
+        new_pos = torch.arange(100, 100 + t, dtype=torch.int32)
+        want, want_pos = base.clone(), pos.clone()
+        shd.write_along(want, 1, index, src)
+        shd.write_along(want_pos, 0, index, new_pos)
+        cache = cache_sh.distribute(base.clone())
+        kv_pos = shd.NamedSharding(mesh, shd.pspec("model")).distribute(
+            pos.clone())
+        with torch.no_grad(), shd.sharded(mesh, rules):
+            shd.write_along(cache, 1, index, src_sh.distribute(src))
+            shd.write_along(kv_pos, 0, index, new_pos)
+        out[name] = dict(got=cache.full_tensor(), want=want,
+                         got_pos=kv_pos.full_tensor(), want_pos=want_pos,
+                         spec=tuple(shd.spec_of(cache)),
+                         changed=not torch.equal(want, base))
+    return out
+
+
 def _lm_on_mesh(mesh, case, on_mesh, gathered):
     """Prefill logits under the serve rules, then the loss, the gradients
     and one train step under the train rules, with DTensor parameters."""
@@ -391,9 +451,18 @@ def _lm_on_mesh(mesh, case, on_mesh, gathered):
                                             LM_RUN["seq"], device="cpu")
     cache = steps.distribute(c_shapes, steps.cache_shardings(
         mesh, rules, c_axes, c_shapes))
+    toks = shd.NamedSharding(mesh, shd.pspec(rules["batch"], None)) \
+        .distribute(_decode_after_prompt(batch))
     with torch.no_grad(), steps.sharded(mesh, rules):
-        logits, _ = lm.prefill(p, b, cfg, max_seq=LM_RUN["seq"], cache=cache)
-    res["prefill"] = logits.full_tensor()
+        logits, cache = lm.prefill(p, b, cfg, max_seq=LM_RUN["seq"],
+                                   cache=cache)
+        res["prefill"] = logits.full_tensor()
+        if case["cfg"].family in DECODE_FAMILIES:
+            res["decode"] = []
+            for i in range(LM_RUN["decode"]):
+                logits, cache = lm.decode_step(p, cache, toks[:, i:i + 1],
+                                               cfg)
+                res["decode"].append(logits.full_tensor())
 
     rules = shd.make_rules("train")
     p, b = on_mesh(cfg, opt.tree_map(torch.clone, case["params"]),
@@ -534,13 +603,20 @@ def _cases():
         cases["lm"][name] = dict(cfg=cfg, params=params, axes=axes,
                                  batch=batch)
         with torch.no_grad():
-            logits, _ = lm.prefill(params, _prefill_batch(batch), cfg,
-                                   max_seq=LM_RUN["seq"])
+            logits, cache = lm.prefill(params, _prefill_batch(batch), cfg,
+                                       max_seq=LM_RUN["seq"])
+            toks, decoded = _decode_after_prompt(batch), []
+            for i in range(LM_RUN["decode"] if cfg.family in DECODE_FAMILIES
+                           else 0):
+                out, cache = lm.decode_step(params, cache, toks[:, i:i + 1],
+                                            cfg)
+                decoded.append(out)
         loss, _, grads = steps.loss_and_grads(params, batch, cfg)
         step = steps.make_train_step(cfg, _opt())
         _, _, m = step(opt.tree_map(torch.clone, params),
                        opt.adamw_init(params), batch)
-        want["lm"][name] = dict(prefill=logits, loss=loss.item(), grads=grads,
+        want["lm"][name] = dict(prefill=logits, decode=decoded,
+                                loss=loss.item(), grads=grads,
                                 step_loss=m["loss"].item())
 
     cfg = _smoke("olmoe-1b-7b")
@@ -695,6 +771,17 @@ def test_sharded_decode_matches_unsharded(session, case):
                        for b in g), d["gathers"]
 
 
+@pytest.mark.parametrize("name", list(WRITES))
+def test_write_along_a_sharded_sequence_is_bit_equal(session, name):
+    got, _ = session
+    for rank in range(WORLD):
+        r = got[rank]["write_along"][name]
+        assert r["spec"] == ("data", "model", None, None)
+        assert torch.equal(r["got"], r["want"])
+        assert torch.equal(r["got_pos"], r["want_pos"])
+        assert r["changed"]  # a write that changes nothing tests nothing
+
+
 def test_expert_parallel_moe_matches_single_device(session):
     got, want = session
     scale = want["moe_out"].abs().max()
@@ -739,6 +826,18 @@ def test_sharded_lm_prefill_matches_unsharded(session, name):
         a = got[rank][f"lm_{name}"]["prefill"]
         assert a.shape == b.shape and torch.isfinite(a).all()
         assert (a - b).abs().max() <= 1e-5 * b.abs().max()
+
+
+@pytest.mark.parametrize("name", ("rwkv6", "zamba2"))
+def test_sharded_scan_decode_steps_match_unsharded(session, name):
+    got, want = session
+    steps_want = want["lm"][name]["decode"]
+    assert len(steps_want) == LM_RUN["decode"]
+    for rank in range(WORLD):
+        for a, b in zip(got[rank][f"lm_{name}"]["decode"], steps_want,
+                        strict=True):
+            assert a.shape == b.shape and torch.isfinite(a).all()
+            assert (a - b).abs().max() <= 1e-5 * b.abs().max()
 
 
 @pytest.mark.parametrize("name", ("rwkv6", "zamba2"))

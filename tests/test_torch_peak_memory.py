@@ -7,7 +7,7 @@ JAX).
 - The same step on ``meta`` and on real CPU tensors reads the same peak:
   train, prefill and decode of one smoke config per family.
 - On a fake 16x16 group (a subprocess running this file): DTensor's own
-  redistributions reach the memory, not the collective records; and the
+  redistributions reach the memory and the collective records; and the
   cross-entropy's forward and backward allocate no storage spanning the
   global batch (each at most the rank's batch shard, the full vocabulary),
   where DTensor's gather backward made a (global batch, t_chunk, vocab)
@@ -228,9 +228,10 @@ def test_dtensor_dispatch_temporaries_reach_the_memory(fake_group):
     r = fake_group["dispatch"]
     # a: (1024, 64) columns split over 16 "data" ranks -> local (1024, 4),
     # b: local (1024, 2); a.T @ b (64, 32) comes out split by rows, (4, 32)
-    # a rank, after b is gathered inside the dispatch, which the recorder
-    # does not see
-    assert r["records"] == []
+    # a rank: DTensor gathers the (64, 32) float32 product inside the
+    # dispatch (on a CPU mesh its column-to-row move is an all-gather and
+    # a local chunk), and the recorder records that all-gather
+    assert r["records"] == [["all-gather", 64 * 32 * 4, 16]]
     assert r["out_local"] == [4, 32]
     gathered = [t for t in r["top"] if "all_gather" in t["op"]]
     assert gathered, r["top"]

@@ -170,3 +170,55 @@ def test_report_main_prints_the_three_tables(tmp_path, capsys, monkeypatch):
     jreport.main()
     assert ours == capsys.readouterr().out
     assert ours.count("| codeqwen1.5-7b |") == 4
+
+
+def _compared():
+    """Two runs' records: the second moves the train cell's collectives,
+    peak and bottleneck and counts them with ``CommDebugMode``."""
+    by_op = {"all-gather": {"count": 144, "result_bytes": 78.17e9},
+             "all-reduce": {"count": 114, "result_bytes": 57.95e9}}
+    ok = dict(_records()[0], collectives_by_op=by_op,
+              memory={"peak_bytes_est": 34.86e9, "param_bytes": 1024})
+    after = dict(ok, fits_hbm=False,
+                 collectives_by_op={"all-reduce": {"count": 395,
+                                                   "result_bytes": 88.0e9}},
+                 memory=dict(ok["memory"], peak_bytes_est=34.35e9),
+                 roofline=dict(ok["roofline"], collective_s=3.3,
+                               bottleneck="memory"),
+                 comm_debug={"equal": True})
+    skip = _records()[2]
+    return [ok, skip], [after, skip, dict(ok, mesh="2x16x16")]
+
+
+def test_compare_table_sets_two_runs_side_by_side():
+    before, after = _compared()
+    rows = report.compare_table(before, after).splitlines()
+    assert len(rows) == 2 + len(after)
+    assert all(r.count("|") == 12 for r in rows)
+    assert rows[2] == ("| codeqwen1.5-7b | train_4k | 16x16 | OK | "
+                       "gather 144/78.170 reduce 114/57.950 -> "
+                       "reduce 395/88.000 | 2.270 -> 3.300 | "
+                       "collective -> memory | 34.86 -> 34.35 | Y -> N | "
+                       "Y | - -> Y |")
+    assert rows[3] == ("| olmoe-1b-7b | long_500k | 16x16 | SKIP -> SKIP |"
+                       + " - |" * 7)
+    # a cell the first run did not have
+    assert rows[4].startswith("| codeqwen1.5-7b | train_4k | 2x16x16 | "
+                              "None -> OK |")
+    # flops or parameter bytes that moved read N
+    moved = dict(after[0], cost_hlo_raw={"flops": 1.0})
+    assert report.compare_table(before, [moved]).splitlines()[2].endswith(
+        "| N | - -> Y |")
+
+
+def test_report_main_compares_two_directories(tmp_path, capsys, monkeypatch):
+    for name, recs in zip(("a", "b"), _compared()):
+        (tmp_path / name).mkdir()
+        for i, r in enumerate(recs):
+            (tmp_path / name / f"{i:02d}.json").write_text(json.dumps(r))
+    monkeypatch.setattr("sys.argv", ["report", "--compare",
+                                     str(tmp_path / "a"), str(tmp_path / "b")])
+    report.main()
+    out = capsys.readouterr().out
+    assert out == report.compare_table(*map(report.load, (
+        tmp_path / "a", tmp_path / "b"))) + "\n"
