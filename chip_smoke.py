@@ -253,8 +253,10 @@ without printing a result:
      minitron-8b x prefill_32k on 16x16; rwkv6-1.6b and zamba2-7b x
      decode_32k on 2x16x16), every cell OK with its per-device peak, each
      also counted by torch's CommDebugMode in its subprocess (records and
-     counts printed by op, the phase fails where they differ), the
-     report's roofline and dry-run tables printed.
+     counts printed by op, the phase fails where they differ), zamba2's
+     all-gather count and bytes printed a cell (the phase fails where
+     prefill_32k's pass 14 GB a device: the Mamba-2 split gathers only B
+     and C), the report's roofline and dry-run tables printed.
 
   20. Quickstart — ``python -m repro_torch.examples.quickstart`` as a
      subprocess on the card: the §5 tour (to_bit and bitpack, bitmm2int
@@ -3790,6 +3792,9 @@ DIST_DRYRUN = (("codeqwen1.5-7b", "train_4k", ([], ["--multi-pod"])),
                ("rwkv6-1.6b", "decode_32k", (["--multi-pod"],)),
                ("zamba2-7b", "decode_32k", (["--multi-pod"],)),
                ("minitron-8b", "prefill_32k", ([],)))
+# the Mamba-2 split per rank: zamba2's all-gathered bytes a device at
+# prefill_32k (B and C, every head's, 2.7 GB) bounded
+DIST_ZAMBA2_GATHER_BOUND = 14e9
 # rwkv6 at full width: the per-rank scan on the card (8 chunks of 32)
 DIST_SCAN_ARCH = "rwkv6-1.6b"
 DIST_SCAN_TRAIN = dict(batch=4, seq=256, lr=1e-3)
@@ -4167,6 +4172,22 @@ def _dist_dryrun(torch, card):
     if unequal:
         raise AssertionError(f"dry run: records differ from CommDebugMode's "
                              f"counts: {unequal}")
+    over = []
+    for r in recs:
+        if r["arch"] != "zamba2-7b":
+            continue
+        ag = r["collectives_by_op"].get("all-gather",
+                                        {"count": 0, "result_bytes": 0})
+        bound = DIST_ZAMBA2_GATHER_BOUND if r["shape"] == "prefill_32k" \
+            else None
+        print(f"zamba2_all_gathers {r['shape']} x {r['mesh']}: count "
+              f"{ag['count']} bytes {ag['result_bytes']} bound {bound}",
+              flush=True)
+        if bound is not None and ag["result_bytes"] > bound:
+            over.append((r["shape"], r["mesh"], ag["result_bytes"]))
+    if over:
+        raise AssertionError(f"dry run: zamba2's all-gathers above their "
+                             f"bound: {over}")
     for mesh in ("16x16", "2x16x16"):
         print(f"## Roofline ({mesh}, per-device seconds/step, H100 rates)")
         print(report.roofline_table(recs, mesh), flush=True)

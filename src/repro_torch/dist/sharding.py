@@ -25,6 +25,8 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
+import itertools
 import math
 import threading
 
@@ -33,6 +35,7 @@ import torch
 __all__ = ["make_rules", "shard_ctx", "current_ctx", "sharded", "constrain",
            "named_sharding", "pspec", "placements", "mesh_shape", "axis_size",
            "shard_map", "spec_of", "unflatten", "flatten", "write_along",
+           "split_along", "split_product", "join_along", "reduce_like",
            "is_sharded", "logical_spec", "AbstractMesh", "NamedSharding",
            "PartitionSpec", "LOGICAL_AXES"]
 
@@ -370,6 +373,20 @@ def constrain(x: torch.Tensor, *logical_axes):
     return x.redistribute(x.device_mesh, target)
 
 
+def reduce_like(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``x``, a DTensor partial sum (a row-parallel product), reduced into
+    ``like``'s layout by DTensor's own redistribution: a reduce-scatter
+    where ``like`` is split over the summed mesh axes. Its backward hands
+    the gradient back whole over those axes (the transpose of a
+    reduce-scatter is an all-gather), where ``constrain`` to the same
+    layout would hand it back split. The identity on plain tensors and
+    where the layouts are equal."""
+    if not (is_sharded(x) and is_sharded(like)) or \
+            tuple(x.placements) == tuple(like.placements):
+        return x
+    return x.redistribute(x.device_mesh, like.placements)
+
+
 def named_sharding(mesh, axes, rules) -> NamedSharding:
     """Logical axes tuple -> NamedSharding on ``mesh`` (no shape knowledge;
     for the shape-aware version see launch.steps.param_shardings)."""
@@ -437,6 +454,169 @@ def flatten(x: torch.Tensor, dim: int) -> torch.Tensor:
     if not is_sharded(x):
         return x.flatten(dim, dim + 1)
     return _Flatten.apply(x, dim)
+
+
+def _split_axis(x, dim: int, sizes) -> str | None:
+    """The one mesh axis a DTensor ``x`` is sharded over along ``dim``
+    (whole shards, in rank order), where its size divides every one of
+    ``sizes``; None for a plain tensor and for any other layout."""
+    if not is_sharded(x):
+        return None
+    from torch.distributed.tensor import Shard
+
+    mesh = x.device_mesh
+    on = [i for i, p in enumerate(x.placements)
+          if isinstance(p, Shard) and p.dim == dim]
+    if len(on) != 1 or type(x.placements[on[0]]) is not Shard:
+        return None
+    m = mesh.size(on[0])
+    if m == 1 or any(s % m for s in sizes):
+        return None
+    return mesh_axis_names(mesh)[on[0]]
+
+
+@functools.lru_cache(maxsize=64)
+def _group_plan(sizes: tuple, m: int, r: int) -> tuple:
+    """Rank ``r``'s side of the all-to-all between two layouts of a dim made
+    of segments of ``sizes``, split over ``m`` ranks: the natural one (rank
+    r holds [r w, (r + 1) w), w = sum(sizes) / m) and the grouped one (rank
+    r holds the r-th of the m equal pieces of every segment, in the
+    segments' order). Returns (``order``: the rank's natural local indices
+    as it sends them, grouped by the rank they go to, ascending within
+    each; its inverse permutation; ``send``: how many go to each rank;
+    ``recv``: how many come from each)."""
+    w = sum(sizes) // m
+    pieces = [(o, s // m) for o, s in
+              zip(itertools.accumulate((0,) + sizes[:-1]), sizes)]
+
+    def spans(lo: int, hi: int, j: int) -> list:
+        """The columns of [lo, hi) in rank j's pieces, ascending."""
+        out = [(max(lo, o + j * q), min(hi, o + (j + 1) * q))
+               for o, q in pieces]
+        return [(a, b) for a, b in out if b > a]
+
+    lo = r * w
+    order, send = [], []
+    for j in range(m):
+        s = spans(lo, lo + w, j)
+        order += [c - lo for a, b in s for c in range(a, b)]
+        send.append(sum(b - a for a, b in s))
+    recv = [sum(b - a for a, b in spans(i * w, (i + 1) * w, r))
+            for i in range(m)]
+    inv = sorted(range(w), key=order.__getitem__)
+    return tuple(order), tuple(inv), tuple(send), tuple(recv)
+
+
+def _regroup(x, dim: int, sizes: tuple, m: int, r: int, group,
+             inverse: bool):
+    """One rank's shard ``x`` along ``dim`` moved from the natural layout
+    to the grouped one (``inverse``: back), by one all-to-all with uneven
+    splits, whose backward is the reverse exchange."""
+    from torch.distributed._functional_collectives import \
+        all_to_all_single_autograd
+
+    order, inv, send, recv = _group_plan(sizes, m, r)
+    if not inverse:
+        x = x.index_select(dim, torch.tensor(order, device=x.device))
+    else:
+        send, recv = recv, send
+    y = all_to_all_single_autograd(x.movedim(dim, 0).contiguous(),
+                                   list(recv), list(send), group)
+    y = y.movedim(0, dim)
+    if inverse:
+        y = y.index_select(dim, torch.tensor(inv, device=x.device))
+    return y
+
+
+def _along(xs, dim: int, sizes: tuple, axis: str, fn, n_out=None):
+    """``fn(*local shards, dim, sizes, m, r, group)`` on each rank ``r`` of
+    the ``m`` along ``axis``, the mesh axis that shards ``xs[0]`` along
+    ``dim``, through :func:`shard_map`: every input and output (one, or
+    ``n_out``) laid out as ``xs[0]``."""
+    mesh, spec = xs[0].device_mesh, spec_of(xs[0])
+    local = functools.partial(fn, dim=dim, sizes=sizes,
+                              m=axis_size(mesh, axis),
+                              r=mesh.get_local_rank(axis),
+                              group=mesh.get_group(axis))
+    out = spec if n_out is None else (spec,) * n_out
+    return shard_map(local, mesh, in_specs=(spec,) * len(xs),
+                     out_specs=out)(*xs)
+
+
+def _pieces(x, *, dim, sizes, m, r, group):
+    """A grouped shard cut into the rank's piece of every segment."""
+    return tuple(x.split([s // m for s in sizes], dim))
+
+
+def _take(x, *, dim, sizes, m, r, group):
+    return _pieces(_regroup(x, dim, sizes, m, r, group, inverse=False),
+                   dim=dim, sizes=sizes, m=m, r=r, group=group)
+
+
+def split_along(x: torch.Tensor, dim: int, sizes) -> tuple:
+    """``x.split(sizes, dim)``, a DTensor split per rank.
+
+    On a DTensor sharded along ``dim`` over one mesh axis whose size
+    divides every one of ``sizes``, each piece is a DTensor laid out as
+    ``x``, each rank holding its own shard of every piece: the rank's
+    shard of ``x`` is put in grouped order (rank r holds the r-th of the
+    equal pieces of every segment, in the segments' order) by one
+    all-to-all over that axis and split locally. Nothing is gathered. A
+    segment that does not split evenly over the axis (or a dim sharded
+    over two axes) is sliced by DTensor, which first gathers ``x`` along
+    ``dim``, where XLA would move only the boundary columns.
+    """
+    dim = dim % x.ndim
+    sizes = tuple(sizes)
+    axis = _split_axis(x, dim, sizes)
+    if axis is None:
+        return x.split(list(sizes), dim)
+    return _along((x,), dim, sizes, axis, _take, len(sizes))
+
+
+def split_product(x: torch.Tensor, w: torch.Tensor, sizes) -> tuple:
+    """``(x @ w.to(x.dtype)).split(sizes, -1)`` for a weight ``w`` (K, N)
+    whose columns are segments of ``sizes``, moving the weight, not the
+    product.
+
+    On a DTensor ``w`` sharded along N over one mesh axis whose size
+    divides every one of ``sizes``, ``w``'s shard is put in grouped order
+    by one all-to-all over that axis, so that the product gives each rank
+    its own columns of every segment, taken locally: for many rows of
+    ``x`` (Mamba-2's fused ``in_proj`` at prefill) the weight's shard is
+    far smaller than the product's. Each piece is laid out as the
+    product. Any other ``w``: the product sliced as ``split_along`` would.
+    """
+    sizes = tuple(sizes)
+    axis = _split_axis(w, 1, sizes)
+    if axis is None:
+        return split_along(x @ w.to(x.dtype), -1, sizes)
+    y = x @ _along((w,), 1, sizes, axis,
+                   functools.partial(_regroup, inverse=False)).to(x.dtype)
+    if _split_axis(y, y.ndim - 1, sizes) != axis:
+        # its columns are in grouped order: a plain slice would be wrong
+        raise ValueError(f"the product of a weight split along N over "
+                         f"{axis!r} is laid out as {spec_of(y)}")
+    return _along((y,), y.ndim - 1, sizes, axis, _pieces, len(sizes))
+
+
+def _join(*pieces, dim, sizes, m, r, group):
+    return _regroup(torch.cat(pieces, dim), dim, sizes, m, r, group,
+                    inverse=True)
+
+
+def join_along(pieces, dim: int) -> torch.Tensor:
+    """``torch.cat(pieces, dim)``, the inverse of :func:`split_along`: on
+    DTensors that it would split per rank (each rank holding its own shard
+    of every piece, all laid out as the first) the ranks' pieces are
+    joined locally and moved to the natural order by one all-to-all; else
+    DTensor's ``cat``, which gathers the pieces along ``dim``."""
+    dim = dim % pieces[0].ndim
+    sizes = tuple(t.shape[dim] for t in pieces)
+    axis = _split_axis(pieces[0], dim, sizes)
+    if axis is None:
+        return torch.cat(pieces, dim)
+    return _along(tuple(pieces), dim, sizes, axis, _join)
 
 
 def write_along(dst: torch.Tensor, dim: int, index, src: torch.Tensor) -> None:

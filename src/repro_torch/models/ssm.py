@@ -27,7 +27,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.sharding import (AbstractMesh, current_ctx, is_sharded,
-                                       logical_spec, shard_map)
+                                       join_along, logical_spec, reduce_like,
+                                       shard_map, split_along, split_product)
 from repro_torch.models.layers import (Initializer, constrain, layer_norm,
                                        rms_norm)
 
@@ -278,6 +279,14 @@ def ssd_step(x_t, a_t, b_t, c_t, s):
 # the scans on a mesh
 # =====================================================================
 
+def _on_mesh(x) -> bool:
+    """Whether ``x`` is a DTensor under a shard context on a DeviceMesh
+    (not an ``AbstractMesh``): the blocks then run their per-rank forms."""
+    ctx = current_ctx()
+    return ctx is not None and not isinstance(ctx[0], AbstractMesh) \
+        and is_sharded(x)
+
+
 def _scan(scan, per_rank, args, names, state_at: int):
     """``scan(*args)`` -> (out (B, T, H, X), final state); on a mesh,
     ``per_rank`` on each rank's shards. A decode step (``gla_step``,
@@ -296,11 +305,9 @@ def _scan(scan, per_rank, args, names, state_at: int):
     number of chunks. ``per_rank`` is the chunk-batched form of ``scan``,
     so that its own ops grow by two a chunk, not by some 25.
     """
-    ctx = current_ctx()
-    if ctx is None or isinstance(ctx[0], AbstractMesh) or \
-            not any(map(is_sharded, args)):
+    if not any(map(_on_mesh, args)):
         return scan(*args)
-    mesh, rules = ctx
+    mesh, rules = current_ctx()
     specs = tuple(logical_spec(mesh, rules, n, x.shape)
                   for x, n in zip(args, names, strict=True))
     return shard_map(per_rank, mesh, in_specs=specs,
@@ -400,7 +407,15 @@ def _rwkv_channel_mix(p, xn, xs):
     cr = constrain(p["cr"], None, "embed2_compute")
     kk = torch.relu(xk @ ck.to(F32)).square()
     kk = constrain(kk, "batch", None, "mlp_act") if kk.ndim == 3 else kk
-    return torch.sigmoid(xr @ cr.to(F32)) * (kk @ cv.to(F32))
+    gate = torch.sigmoid(xr @ cr.to(F32))
+    v = kk @ cv.to(F32)
+    if v.ndim == 3:
+        # the row-parallel product reduced into the gate's layout, its
+        # gradient handed back whole over "model": the gate's product,
+        # split over d_model, would hand it back split over d_model, and
+        # cv's gradient kk^T @ g would gather kk at the whole FFN width
+        v = reduce_like(v, gate)
+    return gate * v
 
 
 def _rwkv_block(p, x, cfg, chunk):
@@ -495,27 +510,36 @@ def mamba2_state(cfg: ModelConfig, batch: int, dtype=F32, device=None,
     }
 
 
-def _mamba_split(zxbcdt, cfg):
+def _segments(cfg) -> tuple:
+    """The widths of in_proj's segments z, x, B, C and dt, in order; x, B
+    and C (``[1:4]``) are the conv's."""
     d, d_in, nh, n, conv_w = _mamba_dims(cfg)
-    z = zxbcdt[..., :d_in]
-    xbc = zxbcdt[..., d_in:d_in + conv_w]
-    dt = zxbcdt[..., d_in + conv_w:]
-    return z, xbc, dt
+    return (d_in, d_in, n, n, nh)
 
 
-def _mamba_ssm(p, xbc, dt, cfg):
-    """Post-conv split + SSD inputs. xbc: (..., conv_w) float32."""
+def _mamba_ssm(p, x, dt, cfg):
+    """The SSD's inputs from x (..., d_in), after the conv's silu, and dt
+    (..., nh)."""
     d, d_in, nh, n, conv_w = _mamba_dims(cfg)
-    xbc = F.silu(xbc)
-    x = xbc[..., :d_in]
-    B = xbc[..., d_in:d_in + n]
-    C = xbc[..., d_in + n:]
     dt = F.softplus(dt + p["dt_bias"].to(F32))                 # (..., nh)
     a = -torch.exp(p["a_log"].to(F32))
     a_log_t = dt * a                                            # log decay <= 0
     shp = x.shape[:-1]
     xh = x.reshape(*shp, nh, MAMBA_HEAD) * dt[..., None]        # dt-scaled input
-    return xh, a_log_t, B, C, x
+    return xh, a_log_t
+
+
+def _causal_conv(xbc_pre, w, b):
+    """The causal depthwise conv over time, kernel CONV_K, summed in the
+    reference's order: (B, T, W) -> (output, the input padded with
+    CONV_K - 1 zero steps in front)."""
+    bsz, t, width = xbc_pre.shape
+    pad = torch.zeros((bsz, CONV_K - 1, width), dtype=F32,
+                      device=xbc_pre.device)
+    xpad = torch.cat([pad, xbc_pre], dim=1)
+    w = w.to(F32)
+    return sum(xpad[:, i:i + t] * w[i] for i in range(CONV_K)) \
+        + b.to(F32), xpad
 
 
 def _to_heads(z, nh: int):
@@ -549,21 +573,44 @@ def _gated_rmsnorm(y, z, w):
     return y * torch.rsqrt(ss / y.shape[-1] + 1e-6) * w.to(F32)
 
 
-def _mamba_block(p, x, cfg, chunk):
-    """The chunked block and its decode state."""
+def _mamba_block(p, x, cfg, chunk, state: bool = True):
+    """The chunked block and (``state``) its decode state.
+
+    On a mesh, in_proj's columns are split over "model" (``mlp_compute``)
+    in shards that do not fall on the segments' boundaries. The weight's
+    shard is put in grouped order by one all-to-all
+    (``dist.sharding.split_product``), so that the product gives each rank
+    its own columns of z, x, B, C and dt, taken locally; the conv runs per
+    segment on the conv weights' pieces (one all-to-all each), B and C
+    (every head's) are gathered by the scan, and the conv state is joined
+    back into the cache's order by one all-to-all. Off a mesh: one
+    product, its slices and one conv, as the reference (cutting the conv
+    in three there would only add launches).
+    """
     b, t, _ = x.shape
     d, d_in, nh, n, conv_w = _mamba_dims(cfg)
     dtype = x.dtype
     xn = rms_norm(x, p["ln_w"]).to(F32)
-    zxbcdt = xn @ constrain(p["in_proj"], None, "mlp_compute").to(F32)
-    z, xbc_pre, dt = _mamba_split(zxbcdt, cfg)
-    # causal depthwise conv, kernel CONV_K, summed in the reference's order
-    pad = torch.zeros((b, CONV_K - 1, conv_w), dtype=F32, device=x.device)
-    xpad = torch.cat([pad, xbc_pre], dim=1)
-    wconv = p["conv_w"].to(F32)
-    xbc = sum(xpad[:, i:i + t] * wconv[i] for i in range(CONV_K)) \
-        + p["conv_b"].to(F32)
-    xh, a_log_t, B, C, _ = _mamba_ssm(p, xbc, dt, cfg)
+    w = constrain(p["in_proj"], None, "mlp_compute")
+    if _on_mesh(w):
+        seg = _segments(cfg)
+        z, *pre, dt = split_product(xn, w, seg)
+        convs = [_causal_conv(v, cw, cb) for v, cw, cb in zip(
+            pre, split_along(p["conv_w"], 1, seg[1:4]),
+            split_along(p["conv_b"], 0, seg[1:4]))]
+        xs, B, C = (F.silu(c) for c, _ in convs)
+
+        def conv_state():
+            return join_along([xp[:, -(CONV_K - 1):] for _, xp in convs], -1)
+    else:
+        z, xbc_pre, dt = (xn @ w.to(F32)).split((d_in, conv_w, nh), -1)
+        xbc, xpad = _causal_conv(xbc_pre, p["conv_w"], p["conv_b"])
+        xs, B, C = F.silu(xbc).split((d_in, n, n), -1)
+
+        def conv_state():
+            # the last CONV_K - 1 pre-conv inputs
+            return xpad[:, -(CONV_K - 1):]
+    xh, a_log_t = _mamba_ssm(p, xs, dt, cfg)
     s0 = torch.zeros((b, nh, n, MAMBA_HEAD), dtype=F32, device=x.device)
     shared = ("batch", None, None)
     c = min(chunk, t)
@@ -580,26 +627,33 @@ def _mamba_block(p, x, cfg, chunk):
     # the residual stream replicated over the tensor-parallel axis, as in
     # the rwkv6 block
     x = constrain(x + (y @ wo.to(F32)).to(dtype), "batch", None, None)
-    # the conv state: the last CONV_K - 1 pre-conv inputs
-    return x, {"s": s_fin, "conv": xpad[:, -(CONV_K - 1):]}
+    return x, ({"s": s_fin, "conv": conv_state()} if state else None)
 
 
 def mamba2_block(p, x, cfg: ModelConfig, chunk: int = 128):
     """Prefill form. x: (B, T, D)."""
-    return _mamba_block(p, x, cfg, chunk)[0]
+    return _mamba_block(p, x, cfg, chunk, state=False)[0]
 
 
 def mamba2_block_step(p, x, state, cfg: ModelConfig):
-    """Decode step. x: (B, D). Returns (x', state')."""
+    """Decode step. x: (B, D). Returns (x', state').
+
+    On a mesh the product's few rows are split per rank by two all-to-alls
+    (``dist.sharding.split_along``): z, the conv's input and dt, the conv's
+    input then in the natural order of the conv weights' and the cache's
+    shards, so that the conv moves nothing; then x, B and C of its output.
+    """
     b = x.shape[0]
     d, d_in, nh, n, conv_w = _mamba_dims(cfg)
     dtype = x.dtype
     xn = rms_norm(x[:, None], p["ln_w"])[:, 0].to(F32)
-    z, xbc, dt = _mamba_split(xn @ p["in_proj"].to(F32), cfg)
+    z, xbc, dt = split_along(xn @ p["in_proj"].to(F32), -1,
+                             (d_in, conv_w, nh))
     window = torch.cat([state["conv"], xbc[:, None]], dim=1)  # (B,K,W)
     xbc = torch.einsum("bkw,kw->bw", window, p["conv_w"].to(F32)) \
         + p["conv_b"].to(F32)
-    xh, a_log_t, B, C, _ = _mamba_ssm(p, xbc, dt, cfg)
+    xs, B, C = split_along(F.silu(xbc), -1, (d_in, n, n))
+    xh, a_log_t = _mamba_ssm(p, xs, dt, cfg)
     y, s = _scan(_ssd_step_grouped, _ssd_step_grouped,
                  (xh, a_log_t, B, C, state["s"]),
                  (("batch", "heads", None), ("batch", "heads"),

@@ -56,34 +56,40 @@ still pass.
 - the GNN int forward under ``shard_ctx`` on the CPU's plain version: logits
   bit-equal to the forward without a context;
 - three smoke-width LMs the dry run's open cells stand for, float32, each
-  with DTensor parameters: a whisper-shaped encoder-decoder with 3 heads
-  and 3 kv heads (the 2-way "model" axis does not divide them, as 16 does
-  not divide whisper-large-v3's 20: the heads stay replicated, the
-  projections' columns do not, and the gradient of the heads' flatten
-  comes back split over "model"), rwkv6 at d_model 128 (2 heads of 64,
-  split over "model") and zamba2 (2 mamba heads split over "model"; its
-  fused ``in_proj`` split over "model" at a width whose z/x/B/C/dt slices
-  do not fall on the shard boundary). The chunked scans run per rank
-  (``ssm._scan``), at a sequence of 160: 5 chunks for rwkv6, 2 for
-  mamba2, the last padded. Under the train rules the loss within 1e-5 of
-  the unsharded port's and every gradient leaf within 1e-5 of it (the
+  with DTensor parameters: a whisper-shaped encoder-decoder with 3 heads and
+  3 kv heads (the 2-way "model" axis does not divide them, as 16 does not
+  divide whisper-large-v3's 20: the heads stay replicated, the projections'
+  columns do not, and the gradient of the heads' flatten comes back split
+  over "model"), rwkv6 at d_model 128 (2 heads of 64, split over "model")
+  and zamba2 (2 mamba heads split over "model"; its fused ``in_proj`` split
+  over "model" at a width whose z/x/B/C/dt slices do not fall on the shard
+  boundary, split per rank by ``split_along``). The chunked scans run per
+  rank (``ssm._scan``), at a sequence of 160: 5 chunks for rwkv6, 2 for
+  mamba2, the last padded. Under the train rules the loss within 1e-5 of the
+  unsharded port's and every gradient leaf within 1e-5 of it (the
   whisper-shaped case) or 5e-5 (rwkv6, zamba2: see below), and one train
-  step: its loss within 1e-5 of the unsharded step's, its parameters
-  within 1e-6 of AdamW applied, unsharded, to the gathered sharded
-  gradients (as for minitron above); under the serve rules the prefill's
-  logits within 1e-5 of the unsharded prefill's, relative to their
-  largest element, and for rwkv6 and zamba2 three decode steps after it
-  (``gla_step`` and ``ssd_step`` run per rank through ``ssm._scan``), each
-  step's logits within 1e-5 of the unsharded steps'. The two scan models'
-  gradients sit at float32 noise
-  near 1e-5 of their largest element: unsharded, in one process, their
-  gradients move by up to 1.4e-5 (zamba2) and 3e-6 (rwkv6) when only the
-  scan's backward summation order changes (the loop over chunks against
-  the chunk-batched form, whose forward was bit-equal), and the
-  sharded ones came 0.4-2.5e-5 from the unsharded ones over seeds 7-11 at
-  sequences 64, 96 and 160 (codeqwen's and the whisper-shaped case's
-  stay near 1e-6). ``test_scan_models_gradient_noise`` measures the first
-  figure;
+  step: its loss within 1e-5 of the unsharded step's, its parameters within
+  1e-6 of AdamW applied, unsharded, to the gathered sharded gradients (as
+  for minitron above); under the serve rules the prefill's logits within
+  1e-5 of the unsharded prefill's, relative to their largest element, and
+  for rwkv6 and zamba2 three decode steps after it (``gla_step`` and
+  ``ssd_step`` run per rank through ``ssm._scan``), each step's logits
+  within 1e-5 of the unsharded steps'. The two scan models' gradients sit at
+  float32 noise near 1e-5 of their largest element: unsharded, in one
+  process, their gradients move by up to 1.4e-5 (zamba2) and 3e-6 (rwkv6)
+  when only the scan's backward summation order changes (the loop over
+  chunks against the chunk-batched form, whose forward was bit-equal), and
+  the sharded ones came 0.4-2.5e-5 from the unsharded ones over seeds 7-11
+  at sequences 64, 96 and 160 (codeqwen's and the whisper-shaped case's stay
+  near 1e-6). ``test_scan_models_gradient_noise`` measures the first figure;
+- ``dist.sharding.split_along`` in the smoke zamba2's in_proj segments:
+  a product split over "model" by columns (the shard boundary inside a
+  segment), and ``split_product``, whose weight is put in grouped order
+  before the product, each piece and the gradient of a weighted sum of the
+  pieces bit-equal to the plain slices' and nothing but all-to-alls
+  issued, each rank holding its own shard of every piece; ``join_along``
+  of the pieces bit-equal to the whole; segments that "model" does not
+  divide, bit-equal through DTensor's gathered slices;
 - ``dist.sharding.write_along`` into a cache split along its sequence
   over "model" (and its positions), each rank writing the positions it
   holds: a slice across the shards and inside one, a ring index that
@@ -366,6 +372,7 @@ def _rank_main(rank, store_dir, cases):
     out["gnn"] = (want, got)
 
     out["write_along"] = _write_along_on_mesh(mesh)
+    out["split_along"] = _split_along_on_mesh(mesh)
 
     # the dry run's open cells at smoke width: uneven heads and the scans
     for name in LM_CASES:
@@ -430,6 +437,72 @@ def _write_along_on_mesh(mesh) -> dict:
                          got_pos=kv_pos.full_tensor(), want_pos=want_pos,
                          spec=tuple(shd.spec_of(cache)),
                          changed=not torch.equal(want, base))
+    return out
+
+
+# dist.sharding.split_along in the smoke zamba2's in_proj segments (z, x,
+# B, C, dt: 128, 128, 8, 8, 2, 137 columns a rank on the 2-way "model"
+# axis, the shard boundary inside x): a (4, 6, 274) product split over
+# "data" by rows and over "model" by columns; split_product of (4, 6, 16)
+# rows split over "data" by a (16, 274) weight split over "model", the
+# weight moved into grouped order and the product split without moving,
+# as the Mamba-2 block's in_proj; and segments that "model" does not
+# divide (127, 129, 9, 7, 2), which DTensor slices after gathering
+SEGMENTS = (128, 128, 8, 8, 2)
+SPLITS = {"product": ((4, 6, 274), ("data", None, "model"), SEGMENTS),
+          "weight": ((16, 274), (None, "model"), SEGMENTS),
+          "uneven": ((4, 6, 274), ("data", None, "model"), (127, 129, 9, 7,
+                                                             2))}
+ROWS = ((4, 6, 16), ("data", None, None))
+
+
+def _split_along_on_mesh(mesh) -> dict:
+    """Each case's pieces, the gradient of a weighted sum of them and
+    ``join_along`` of the pieces, gathered, beside the plain slices' and
+    their gradient; the collectives of the split and join."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.perf import roofline
+
+    def put(t, spec):
+        return shd.NamedSharding(mesh, shd.pspec(*spec)).distribute(t)
+
+    rules = shd.make_rules("train")
+    out = {}
+    for name, (shape, spec, sizes) in SPLITS.items():
+        g = torch.Generator().manual_seed(11)
+        if name == "weight":
+            # small integers: every product and gradient exact in any
+            # order of summation
+            def draw(*shape):
+                return torch.randint(-4, 5, shape, generator=g).float()
+            rows = draw(*ROWS[0])
+        else:
+            def draw(*shape):
+                return torch.randn(shape, generator=g)
+            rows = None
+        x = draw(*shape)
+        xp = x.clone().requires_grad_()
+        whole = xp if rows is None else rows @ xp
+        ws = [draw(*whole.shape[:-1], s) for s in sizes]
+        want = whole.split(sizes, -1)
+        sum((a * w).sum() for a, w in zip(want, ws)).backward()
+        xd = put(x, spec).requires_grad_()
+        with shd.sharded(mesh, rules), \
+                roofline.record_collectives() as rec:
+            if rows is None:
+                got = shd.split_along(xd, -1, sizes)
+            else:
+                got = shd.split_product(put(rows, ROWS[1]), xd, sizes)
+            joined = shd.join_along(got, -1)
+        with shd.sharded(mesh, rules):
+            sum((a * w).sum() for a, w in zip(got, ws)).backward()
+        out[name] = dict(
+            got=[t.full_tensor() for t in got],
+            want=[t.detach() for t in want], grad=xd.grad.full_tensor(),
+            want_grad=xp.grad, joined=joined.full_tensor(),
+            whole=whole.detach(),
+            specs=[tuple(shd.spec_of(t)) for t in got],
+            ops=sorted({op for op, _, _ in rec}))
     return out
 
 
@@ -780,6 +853,26 @@ def test_write_along_a_sharded_sequence_is_bit_equal(session, name):
         assert torch.equal(r["got"], r["want"])
         assert torch.equal(r["got_pos"], r["want_pos"])
         assert r["changed"]  # a write that changes nothing tests nothing
+
+
+@pytest.mark.parametrize("name", list(SPLITS))
+def test_split_along_is_bit_equal_to_the_plain_slices(session, name):
+    got, _ = session
+    sizes = SPLITS[name][2]
+    for rank in range(WORLD):
+        r = got[rank]["split_along"][name]
+        assert len(r["got"]) == len(sizes)
+        for a, b in zip(r["got"], r["want"], strict=True):
+            assert torch.equal(a, b)
+        assert torch.equal(r["grad"], r["want_grad"])
+        assert torch.equal(r["joined"], r["whole"])
+        if name == "uneven":
+            continue
+        # each rank holds its own shard of every piece, laid out as the
+        # product, and nothing is gathered: all-to-alls move them (the
+        # weight's before the product) and join them back
+        assert r["specs"] == [SPLITS["product"][1]] * len(sizes)
+        assert r["ops"] == ["all-to-all"], r["ops"]
 
 
 def test_expert_parallel_moe_matches_single_device(session):

@@ -16,12 +16,18 @@ default group):
   and when it redistributes (the transpose of the reference's
   ``with_sharding_constraint``), where the same product without the
   constraint hands it back in another layout.
-- ``wide``, the fake 16x16 group of the dry run: a small codeqwen-family
-  train step whose ``d_ff`` splits over "model": its records equal
-  ``CommDebugMode``'s counts op by op, and no storage it allocates holds
-  the MLP's activation or its gradient at the whole ``d_ff`` (the rank's
-  batch rows by ``d_ff``, or more); and ``dist.sharding.write_along`` on
-  a sequence-sharded cache at n = t = 4096 (a slice and a ring index)
+- ``wide``, the fake 16x16 group of the dry run: small codeqwen- and
+  rwkv6-family train steps whose ``d_ff`` splits over "model": their
+  records equal ``CommDebugMode``'s counts op by op, and no storage they
+  allocate holds the MLP's (rwkv6: the channel mix's) activation or its
+  gradient at the whole ``d_ff`` (the rank's batch rows by ``d_ff``, or
+  more); a small zamba2-family prefill and train step whose Mamba-2
+  ``in_proj`` segments (z, x, B, C, dt) each split over "model" (131
+  columns a rank, the shard boundaries inside the segments): records equal
+  to ``CommDebugMode``'s, at most two all-gathers a Mamba-2 block (B and C,
+  which every head shares) in its forward, and no storage at the rank's
+  rows by the whole in_proj or conv width; and ``dist.sharding.write_along``
+  on a sequence-sharded cache at n = t = 4096 (a slice and a ring index)
   allocates no (n, t) tensor, none larger than the source or t positions.
 """
 import json
@@ -32,7 +38,19 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-FFN = dict(d_ff=1024, vocab=512, seq=64, batch=32)
+# the families whose FFN width splits over "model" (rwkv6 at d_model 1024,
+# where DTensor would gather the channel mix's activation rather than its
+# gradient, and at a sequence whose rows by d_ff outnumber the scan's
+# initial state, made at the global batch)
+FFN = {"codeqwen1.5-7b": dict(d_ff=1024, vocab=512, seq=64, batch=32),
+       "rwkv6-1.6b": dict(d_model=1024, d_ff=4096, vocab=512, seq=512,
+                          batch=32)}
+# zamba2 with in_proj's five segments split over 16: d_in 1024, ssm_state
+# 16, 16 heads (2096 = 16 x 131 columns; the conv's 1056 = 16 x 66), the
+# shared attention's 16 heads over "model" too
+MAMBA = dict(d_model=512, ssm_state=16, n_heads=16, n_kv_heads=16, d_head=32,
+             vocab=512, seq=256, batch=16)
+MAMBA_KINDS = ("prefill", "train")
 WRITE = dict(n=4096, batch=16, heads=1, head_dim=8)
 
 
@@ -117,6 +135,7 @@ def _on_wide() -> dict:
     from repro_torch.dist import sharding as shd
     from repro_torch.launch import steps
     from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import ssm
     from repro_torch.perf import roofline
 
     mesh = make_production_mesh()
@@ -129,26 +148,48 @@ def _on_wide() -> dict:
                          // info[2].itemsize])
         return watch(self, st, nbytes, info)
 
-    out = {}
-    cfg = dataclasses.replace(smoke_config(configs.get("codeqwen1.5-7b")),
-                              d_ff=FFN["d_ff"], vocab=FFN["vocab"])
-    shape = ShapeSpec(name="small_train", kind="train", seq=FFN["seq"],
-                      batch=FFN["batch"])
-    step_fn, inputs, _ = steps.lower_cell(cfg, shape, mesh)
-    roofline.PeakMemory._watch = logged
-    try:
-        with roofline.record_collectives(
-                memory=roofline.PeakMemory()) as recs:
+    block = ssm._mamba_block
+    blocks = []
+
+    def step(arch, kind, over):
+        """One small step of ``arch``: its records, ``CommDebugMode``'s
+        counts, its allocations, and the records of each Mamba-2 block's
+        forward."""
+        over = dict(over)
+        shape = ShapeSpec(name=f"small_{kind}", kind=kind,
+                          seq=over.pop("seq"), batch=over.pop("batch"))
+        cfg = dataclasses.replace(smoke_config(configs.get(arch)), **over)
+        step_fn, inputs, _ = steps.lower_cell(cfg, shape, mesh)
+        seen.clear()
+        blocks.clear()
+
+        def counted(*a, **kw):
+            n = len(recs)
+            out = block(*a, **kw)
+            blocks.append([list(r[:2]) for r in recs[n:]])
+            return out
+
+        roofline.PeakMemory._watch = logged
+        ssm._mamba_block = counted
+        try:
+            with roofline.record_collectives(
+                    memory=roofline.PeakMemory()) as recs:
+                step_fn(*inputs)
+        finally:
+            roofline.PeakMemory._watch = watch
+            ssm._mamba_block = block
+        comm = CommDebugMode()
+        with comm:
             step_fn(*inputs)
-    finally:
-        roofline.PeakMemory._watch = watch
-    comm = CommDebugMode()
-    with comm:
-        step_fn(*inputs)
-    out["step"] = {"records": _by_op(recs), "comm": _comm_counts(comm),
-                   "allocations": seen, "shards": {
-                       "data": shd.mesh_shape(mesh)["data"],
-                       "model": shd.mesh_shape(mesh)["model"]}}
+        return {"records": _by_op(recs), "comm": _comm_counts(comm),
+                "allocations": list(seen), "blocks": list(blocks),
+                "shards": {"data": shd.mesh_shape(mesh)["data"],
+                           "model": shd.mesh_shape(mesh)["model"]}}
+
+    out = {"step": {arch: step(arch, "train", over)
+                    for arch, over in FFN.items()},
+           "mamba": {kind: step("zamba2-7b", kind, MAMBA)
+                     for kind in MAMBA_KINDS}}
 
     n, b = WRITE["n"], WRITE["batch"]
     rules = shd.make_rules("serve", context_parallel=True)
@@ -228,22 +269,67 @@ def test_a_constrained_gradient_takes_the_constraints_placements(groups,
     assert r["grads"][f"{forward}_False"] != r["target"]
 
 
-def test_train_step_records_equal_comm_debug_mode(groups):
-    r = groups["wide"]["step"]
+@pytest.mark.parametrize("arch", list(FFN))
+def test_train_step_records_equal_comm_debug_mode(groups, arch):
+    r = groups["wide"]["step"][arch]
     assert r["records"] and r["records"] == r["comm"], r
     assert r["records"].get("all-reduce", 0) > 0
 
 
-def test_train_step_holds_no_mlp_activation_at_the_whole_ffn_width(groups):
-    r = groups["wide"]["step"]
-    rows = FFN["batch"] // r["shards"]["data"] * FFN["seq"]
+@pytest.mark.parametrize("arch", list(FFN))
+def test_train_step_holds_no_mlp_activation_at_the_whole_ffn_width(groups,
+                                                                    arch):
+    r = groups["wide"]["step"][arch]
+    d_ff = FFN[arch]["d_ff"]
+    rows = FFN[arch]["batch"] // r["shards"]["data"] * FFN[arch]["seq"]
     assert r["allocations"]
     for op, shape, numel in r["allocations"]:
         # the rank's rows at the whole d_ff, whatever the shape DTensor
         # stages them in ((d_ff, rows) gathered, (rows * shards, d_ff /
         # shards) scattered)
-        assert numel < rows * FFN["d_ff"], (op, shape)
-        assert FFN["d_ff"] not in shape, (op, shape)
+        assert numel < rows * d_ff, (op, shape)
+        assert d_ff not in shape, (op, shape)
+
+
+def _mamba_widths():
+    d_in = 2 * MAMBA["d_model"]
+    n, heads = MAMBA["ssm_state"], d_in // 64
+    return 2 * d_in + 2 * n + heads, d_in + 2 * n
+
+
+@pytest.mark.parametrize("kind", MAMBA_KINDS)
+def test_mamba2_step_records_equal_comm_debug_mode(groups, kind):
+    r = groups["wide"]["mamba"][kind]
+    assert r["records"] and r["records"] == r["comm"], r
+    # the weight's (and the conv's) grouping by all-to-all, not a gather
+    assert r["records"].get("all-to-all", 0) > 0
+
+
+@pytest.mark.parametrize("kind", MAMBA_KINDS)
+def test_mamba2_split_gathers_only_b_and_c(groups, kind):
+    r = groups["wide"]["mamba"][kind]
+    rows = MAMBA["batch"] // r["shards"]["data"] * MAMBA["seq"]
+    assert r["blocks"]
+    for recs in r["blocks"]:
+        gathers = [b for op, b in recs if op == "all-gather"]
+        # B and C, (rows, ssm_state) float32 each; the rest of in_proj's
+        # product stays split
+        assert gathers == [rows * MAMBA["ssm_state"] * 4] * 2, recs
+
+
+@pytest.mark.parametrize("kind", MAMBA_KINDS)
+def test_mamba2_step_holds_no_in_proj_product_at_the_whole_width(groups,
+                                                                 kind):
+    r = groups["wide"]["mamba"][kind]
+    rows = MAMBA["batch"] // r["shards"]["data"] * MAMBA["seq"]
+    widths = _mamba_widths()
+    assert widths == (2096, 1056)
+    assert r["allocations"]
+    for op, shape, numel in r["allocations"]:
+        # the rank's rows at the whole in_proj or conv width, gathered or
+        # staged
+        assert numel < rows * min(widths), (op, shape)
+        assert not set(widths) & set(shape), (op, shape)
 
 
 @pytest.mark.parametrize("index", ["slice", "ring"])
